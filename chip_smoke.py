@@ -8,9 +8,10 @@ line is printed only when every phase passed):
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and
    CUDA versions.
-2. ``build``: builds the greedy-solve kernel (K1) from
-   kubernetes_tpu_torch/csrc/ with nvcc; prints the seconds and ptxas's
-   register report.
+2. ``build``: builds the greedy-solve (K1) and constrained-solve (K2)
+   kernels from kubernetes_tpu_torch/csrc/, one nvcc each, both started
+   together; prints each one's seconds and ptxas's register and spill
+   report.
 3. ``kernel_vs_twin``: K1 against its plain PyTorch version on the card,
    on seeded inputs at the burst's full shape (B=4,096 pods, N=5,632 node
    rows, R=4, U=8 mask rows) and at R=6 with scalar dims, with all-zero
@@ -18,7 +19,20 @@ line is printed only when every phase passed):
    tolerance is zero: assignments, requested' and nzr' must be
    bit-equal. Times the kernel with CUDA events after a warmup launch,
    and the plain version with the host clock.
-4. ``burst``: the main path end to end through the port's entry points,
+4. ``constrained_kernel_vs_twin``: K2 against its plain PyTorch version
+   on the card at the constrained burst's shape (B=1,024 with inactive
+   padding, N=5,632 node rows, R=4), packed by the port's own packers
+   from a seeded 5,000-node cluster (10 zones, hostname labels, some
+   nodes without a zone or rack label, small nodes that fill up,
+   PreferNoSchedule taints, existing pods with affinity terms, a
+   Service): hard spread, required affinity and anti-affinity on zone
+   and hostname keys, preferred (anti-)affinity, soft spread, preferred
+   node affinity and Service-selected pods. Cases: all three families at
+   their live rows, at every row the packers emit, and each family alone
+   (the other two as constants). Tolerance zero on assignments,
+   requested' and nzr'. K2 is timed with CUDA events after a warmup
+   launch, the plain version with the host clock.
+5. ``burst``: the main path end to end through the port's entry points,
    as bench.py builds it: APIServer, Client, InformerFactory,
    new_scheduler(batch=True, max_batch=4096) on the card, 5,000 nodes
    (32 CPU, 64Gi, 110 pods), warmup() and a warm burst, then 10,000 pods
@@ -28,8 +42,19 @@ line is printed only when every phase passed):
    replay of the burst's batches, in solve order, through the numpy
    host_greedy_assign from the post-warmup cluster state. Prints pods/s,
    p50/p99 pod-to-bind and the per-stage seconds.
-5. ``kernels``: every ported kernel with its launches in the burst, its
-   time per launch, its plain version's time and its bound.
+6. ``constrained_bursts``: the five 5,000-node constrained rows of the
+   perf matrix (PodTopologySpread, PodAntiAffinity, PodAffinity,
+   PreferredPodAffinity, ServiceSpread), each on a fresh stack through
+   the entry points: new_scheduler(batch=True, max_batch=1024) on the
+   card, warmup(), the init pods, then 1,000 measured pods created in
+   chunks. Asserts every pod binds, every measured batch solved on the
+   "cuda" tier with K2 launching, no fallback counter moved, each
+   recorded solve equals a CPU replay of its pieces and handed carry
+   through the plain version, the placements equal that replay, and the
+   row's hard constraints hold. Prints pods/s, p50/p99 create-to-bind,
+   the batch sizes, K2's launches and the stage seconds.
+7. ``kernels``: every ported kernel with its launches on the main path,
+   its time per launch, its plain version's time and its bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -42,6 +67,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -230,7 +256,619 @@ def kernel_vs_twin(gk, asg_mod, cfg_cls):
     return timing, max_err
 
 
-# -- phase 4: the burst -------------------------------------------------------
+# -- phase 4: the constrained kernel vs its twin ------------------------------
+
+ZONE_KEY = "topology.kubernetes.io/zone"
+HOST_KEY = "kubernetes.io/hostname"
+CONSTRAINED_SHAPE = dict(nodes=N_NODES, zones=10, existing=2000, pods=1000)
+
+
+class _Lister:
+    def __init__(self, items=()):
+        self._items = list(items)
+
+    def list(self):
+        return list(self._items)
+
+
+class _ServiceInformers:
+    """What the score packer reads of the informers: the Services whose
+    selectors drive SelectorSpread."""
+
+    def __init__(self, services):
+        self._services = _Lister(services)
+
+    def services(self):
+        return self._services
+
+    def replication_controllers(self):
+        return _Lister()
+
+    def replica_sets(self):
+        return _Lister()
+
+    def stateful_sets(self):
+        return _Lister()
+
+
+def constrained_problem(seed):
+    """A constrained batch at the burst's shape, packed as the batch
+    scheduler packs it, by the port's packers: host arrays of the common
+    operands and the three padded family tuples (and their no-op
+    twins)."""
+    import random
+
+    from kubernetes_tpu_torch.api.types import ObjectMeta, Service
+    from kubernetes_tpu_torch.cache.snapshot import new_snapshot
+    from kubernetes_tpu_torch.ops.affinity import (
+        noop_affinity_tensors, pack_affinity_batch, pad_affinity_tensors,
+    )
+    from kubernetes_tpu_torch.ops.host_masks import static_mask_compact
+    from kubernetes_tpu_torch.ops.scoring import (
+        noop_score_tensors, pack_score_batch, pad_score_tensors,
+    )
+    from kubernetes_tpu_torch.ops.topology import (
+        noop_spread_tensors, pack_spread_batch, pad_spread_tensors,
+    )
+    from kubernetes_tpu_torch.tensors import NodeTensorCache, pack_pod_batch
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    rng = random.Random(seed)
+    shape = CONSTRAINED_SHAPE
+    nodes = []
+    for i in range(shape["nodes"]):
+        # some nodes lack the zone or the rack label (ineligible for the
+        # families keyed on them), some fill up within the batch
+        nd = (
+            make_node(f"node-{i}")
+            .capacity(cpu="1" if i % 5 == 4 else "32", memory="64Gi",
+                      pods=110)
+            .label(HOST_KEY, f"node-{i}")
+        )
+        if i % 8 != 7:
+            nd = nd.label(ZONE_KEY, f"zone-{i % shape['zones']}")
+        if i % 6 != 5:
+            nd = nd.label("rack", f"rack-{i % 7}")
+        if i % 13 == 5:
+            nd = nd.taint("flaky", "yes", effect="PreferNoSchedule")
+        nodes.append(nd.obj())
+    apps = ["a", "b", "c"]
+    existing = []
+    for i in range(shape["existing"]):
+        p = (
+            make_pod(f"ex-{i}").node(f"node-{rng.randrange(shape['nodes'])}")
+            .container(cpu="200m", memory="256Mi")
+            .labels(app=rng.choice(apps), svc=rng.choice(["web", "db"]))
+        )
+        roll = rng.random()
+        if roll < 0.05:
+            p = p.pod_affinity(HOST_KEY, {"app": rng.choice(apps)}, anti=True)
+        elif roll < 0.15:
+            p = p.preferred_pod_affinity(
+                ZONE_KEY, {"app": rng.choice(apps)},
+                weight=rng.randrange(1, 20), anti=rng.random() < 0.5,
+            )
+        existing.append(p.obj())
+    pods = []
+    for i in range(shape["pods"]):
+        app = rng.choice(apps)
+        p = (
+            make_pod(f"pod-{i}").container(cpu="250m", memory="512Mi")
+            .labels(app=app, svc=rng.choice(["web", "db", "none"]))
+        )
+        roll = rng.random()
+        if roll < 0.10:
+            p = p.pod_affinity(HOST_KEY, {"app": rng.choice(apps)}, anti=True)
+        elif roll < 0.16:
+            p = p.pod_affinity(ZONE_KEY, {"app": rng.choice(apps)}, anti=True)
+        elif roll < 0.26:
+            p = p.pod_affinity(ZONE_KEY, {"app": rng.choice(apps)})
+        elif roll < 0.30:
+            p = p.pod_affinity(HOST_KEY, {"app": rng.choice(apps)})
+        elif roll < 0.42:
+            p = p.spread_constraint(
+                max_skew=rng.randrange(1, 4),
+                topology_key=rng.choice([ZONE_KEY, HOST_KEY]),
+                when_unsatisfiable="DoNotSchedule", match_labels={"app": app},
+            )
+        elif roll < 0.47:
+            p = p.spread_constraint(
+                max_skew=1, topology_key=rng.choice([ZONE_KEY, "rack"]),
+                when_unsatisfiable="ScheduleAnyway", match_labels={"app": app},
+            )
+        elif roll < 0.62:
+            p = p.preferred_pod_affinity(
+                rng.choice([ZONE_KEY, HOST_KEY]), {"app": rng.choice(apps)},
+                weight=rng.randrange(1, 30), anti=rng.random() < 0.4,
+            )
+        elif roll < 0.66:
+            p = p.preferred_node_affinity_in("rack", ["rack-1", "rack-2"])
+        pods.append(p.obj())
+    snap = new_snapshot(existing, nodes)
+    nt = NodeTensorCache().update(snap)
+    batch = pack_pod_batch(pods, nt.dims)
+    mask_rows, mask_index = static_mask_compact(pods, snap, nt)
+    b = batch.size
+    padded = MAX_CONSTRAINED_BATCH
+    order = batch.order
+    req = np.zeros((padded, nt.dims.num_dims), np.int32)
+    nzr = np.zeros((padded, 2), np.int32)
+    midx = np.zeros(padded, np.int32)
+    active = np.zeros(padded, bool)
+    req[:b] = batch.requests[order]
+    nzr[:b] = batch.non_zero_requests[order]
+    midx[:b] = mask_index[order]
+    active[:b] = True
+    u = mask_rows.shape[0]
+    rows = np.zeros((8 * -(-u // 8), nt.capacity), bool)
+    rows[:u] = mask_rows
+    ordered = [pods[int(i)] for i in order]
+    services = [Service(metadata=ObjectMeta(name="web", namespace="default"),
+                        selector={"svc": "web"})]
+    sp = pack_spread_batch(ordered, snap, nt)
+    af = pack_affinity_batch(ordered, snap, nt)
+    sc = pack_score_batch(
+        ordered, snap, nt, _ServiceInformers(services),
+        {"NodeAffinity": 1, "TaintToleration": 1,
+         "DefaultPodTopologySpread": 1, "PodTopologySpread": 2,
+         "InterPodAffinity": 1},
+        hard_pod_affinity_weight=1,
+    )
+    if sp is None or af is None or sc is None:
+        raise AssertionError("a family packer refused the seeded batch")
+    common = [
+        np.asarray(nt.allocatable), np.asarray(nt.requested),
+        np.asarray(nt.non_zero_requested), np.asarray(nt.valid),
+        req, nzr, rows, midx, active,
+    ]
+    fams = (
+        tuple(pad_spread_tensors(sp, padded)),
+        tuple(pad_affinity_tensors(af, padded)),
+        tuple(pad_score_tensors(sc, padded)),
+    )
+    noops = (
+        tuple(noop_spread_tensors(padded, nt.capacity)),
+        tuple(noop_affinity_tensors(padded, nt.capacity)),
+        tuple(noop_score_tensors(padded, nt.capacity)),
+    )
+    return common, fams, noops
+
+
+def k2_pair_ops(r, least, balanced, most):
+    """Operations of K2 per (pod, node) pair, counted from the kernel body
+    (csrc/constrained_solve.cu), each division as ONE operation:
+      fit       K1's fit test, per pair fit-tested;
+      spread    per live slot: key compare, clamp (2), add self, sub min,
+                compare, AND: 7, per pair that fits;
+      affinity  per live row (incoming, anti, existing-pod): key compare,
+                value compare, clamp (2), count compare, AND: 6, per pair
+                that fits;
+      scoring   per feasible pair: K1's resource score; direct add 1;
+                NodeAffinity mul, div, floor, mul, select, add and its max
+                fold 2: 8; TaintToleration the same and a sub: 9;
+                SelectorSpread sub, mul, div, select for the node and the
+                zone (8), clamp, the blend (mul, FMA as 2), floor, mul,
+                add, max fold, zone add: 19; soft per slot key compare,
+                clamp, add (3), then sub, mul, div, floor, mul, add and
+                its folds (add, min, select): 9; preferred affinity per
+                row key compare, clamp, 2 mul, 2 add (6), then sub, mul,
+                div, max, add, floor, mul, add and its folds (2): 10."""
+    return dict(
+        fit=fit_ops(r), spread_slot=7, affinity_row=6,
+        score=score_ops(least, balanced, most) + 1 + 8 + 9,
+        sel=19, soft_slot=3, soft=9, ipa_row=6, ipa=10,
+    )
+
+
+def k2_operations(host, fams, counts, cfg):
+    """The operations this run's data needs: pairs fit-tested (active pod
+    x valid node its mask row admits), pairs that fit and pairs feasible
+    (per pod, from the plain version's step counts), times each family's
+    per-pair operations at the pod's live slots and rows, plus each
+    spread slot's minimum over values (2 per value). Preferred affinity
+    counts only the rows with a value on some node: padding rows add
+    nothing to any score."""
+    alloc, _, _, valid, _, _, rows, midx, active = host
+    sp, af, sc = fams
+    ops = k2_pair_ops(
+        alloc.shape[1], cfg.least_allocated_weight,
+        cfg.balanced_allocation_weight, cfg.most_allocated_weight,
+    )
+    ipa_rows = int((sc[13] >= 0).any(axis=1).sum())
+    total = 0
+    pairs = dict(tested=0, fit=0, feasible=0)
+    for k, t in enumerate(np.flatnonzero(active)):
+        tested = int((valid & rows[min(int(midx[t]), rows.shape[0] - 1)]).sum())
+        fit, feas = (int(x) for x in counts[k])
+        n_sp = int((sp[3][t] >= 0).sum())
+        n_rows = (
+            int((af[3][t] >= 0).sum()) + int((af[8][t] >= 0).sum())
+            + int(af[12][t].sum())
+        )
+        n_soft = int((sc[11][t] >= 0).sum())
+        sel = sc[7][t] >= 0
+        per_feasible = (
+            ops["score"] + (ops["sel"] if sel else 0)
+            + (ops["soft"] + ops["soft_slot"] * n_soft if n_soft else 0)
+            + (ops["ipa"] + ops["ipa_row"] * ipa_rows if ipa_rows else 0)
+        )
+        total += (
+            tested * ops["fit"]
+            + fit * (ops["spread_slot"] * n_sp + ops["affinity_row"] * n_rows)
+            + feas * per_feasible
+            + 2 * n_sp * sp[0].shape[1]
+        )
+        pairs["tested"] += tested
+        pairs["fit"] += fit
+        pairs["feasible"] += feas
+    return total, pairs
+
+
+def constrained_kernel_vs_twin(ck, asg_mod):
+    t_pack = time.perf_counter()
+    host, fams, noops = constrained_problem(7)
+    pack_s = time.perf_counter() - t_pack
+    cfg = asg_mod.GreedyConfig()
+    # K2 at each family's live rows, and at every row the packers emit
+    # (padding rows that change nothing); the plain version runs every row
+    cases = [("all_live_rows", (0, 1, 2), True),
+             ("all_packed_rows", (0, 1, 2), False)]
+    for k, name in enumerate(("spread_alone", "affinity_alone",
+                              "scoring_alone")):
+        cases.append((name, (k,), True))
+    dev_common = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in host]
+    timing = None
+    max_err = 0.0
+    for name, live, at_live_rows in cases:
+        case_fams = tuple(fams[k] if k in live else noops[k] for k in range(3))
+        rows = ck.live_rows(
+            *(fams[k] if k in live else None for k in range(3))
+        ) if at_live_rows else None
+        dev_fams = [
+            tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in f)
+            for f in case_fams
+        ]
+        torch.cuda.synchronize()
+        k_out = ck.constrained_solve_cuda(
+            *dev_common, *dev_fams, config=cfg, rows=rows
+        )  # warm launch
+        torch.cuda.synchronize()
+        counts = []
+        t0 = time.perf_counter()
+        p_out = asg_mod.greedy_assign_constrained(
+            *dev_common, *dev_fams, config=cfg, pair_counts=counts,
+        )
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = [bool(torch.equal(k, p)) for k, p in zip(k_out, p_out)]
+        err = max(
+            float((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+            for k, p in zip(k_out, p_out)
+        )
+        max_err = max(max_err, err)
+        reps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            ck.constrained_solve_cuda(
+                *dev_common, *dev_fams, config=cfg, rows=rows
+            )
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        counts = torch.stack(counts).cpu().numpy() if counts else []
+        ops, pairs = k2_operations(host, case_fams, counts, cfg)
+        n_bytes = sum(a.nbytes for a in host) + sum(
+            np.asarray(a).nbytes for f in case_fams for a in f
+        ) + k_out[0].numel() * 4 + 2 * (k_out[1].numel() + k_out[2].numel())
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+        rec = dict(
+            case=name, rows=None if rows is None else dict(rows._asdict()),
+            equal=equal,
+            max_abs_err=err, active=int(host[8].sum()),
+            placed=int((k_out[0] >= 0).sum()), ms=ms, plain_ms=plain_ms,
+            pairs=pairs, ops=ops, bytes=n_bytes,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms > ops_ms else "operations",
+        )
+        if name == "all_live_rows":
+            rec["pack_seconds"] = pack_s
+            timing = rec
+        emit("constrained_kernel_vs_twin", **rec)
+        if not all(equal):
+            raise AssertionError(f"K2 disagrees with its twin on {name}")
+    return timing, max_err
+
+
+# -- phase 6: the constrained rows of the perf matrix -------------------------
+
+# The five 5,000-node constrained rows of the repo's perf matrix,
+# benchmarks/config/performance-config.yaml:86-145 (written out here: the
+# card's machine has no YAML parser, and benchmarks/runner.py imports the
+# JAX package). Matrix defaults: 32 CPU, 64Gi and 110 pods per node,
+# zone-{i % 10} and hostname labels, max_batch 1,024.
+CONSTRAINED_ROWS = [
+    dict(name="PodTopologySpread/5000", init_pods=1000,
+         init_labels={"app": "spread-init"}, labels={"app": "spread"},
+         spread=dict(key=ZONE_KEY, max_skew=120, match={"app": "spread"})),
+    dict(name="PodAntiAffinity/5000", init_pods=500, init_labels=None,
+         labels={"color": "red"},
+         affinity=dict(key=HOST_KEY, match={"color": "red"}, anti=True)),
+    dict(name="PodAffinity/5000", init_pods=1000,
+         init_labels={"peer": "base"}, labels={"peer": "base"},
+         affinity=dict(key=ZONE_KEY, match={"peer": "base"})),
+    dict(name="PreferredPodAffinity/5000", init_pods=1000,
+         init_labels={"pref": "base"}, labels={"pref": "base"},
+         affinity=dict(key=ZONE_KEY, match={"pref": "base"},
+                       preferred=True, weight=10)),
+    dict(name="ServiceSpread/5000", init_pods=1000,
+         init_labels={"svc": "web"}, labels={"svc": "web"},
+         services=[("web", {"svc": "web"})]),
+]
+MEASURED_PODS = 1000
+MAX_CONSTRAINED_BATCH = 1024
+
+
+def row_pod(make_pod, row, name, labels, constrained):
+    """One pod of a matrix row, as benchmarks/runner.py builds it (100m,
+    128Mi); the init pods of a row without an init spec take the row's
+    own spec."""
+    w = make_pod(name).container(cpu="100m", memory="128Mi").labels(**labels)
+    if not constrained:
+        return w.obj()
+    sp = row.get("spread")
+    if sp:
+        w = w.spread_constraint(
+            max_skew=sp["max_skew"], topology_key=sp["key"],
+            when_unsatisfiable="DoNotSchedule", match_labels=sp["match"],
+        )
+    af = row.get("affinity")
+    if af and af.get("preferred"):
+        w = w.preferred_pod_affinity(
+            af["key"], af["match"], weight=af["weight"],
+        )
+    elif af:
+        w = w.pod_affinity(af["key"], af["match"], anti=af.get("anti", False))
+    return w.obj()
+
+
+def replay_solves(calls, dispatched):
+    """Replay each recorded solve on the CPU through the plain versions,
+    from its pieces and the device state it was handed, in order; check
+    each against the card's answer and return the placements the replay
+    implies: pod name -> node name."""
+    from kubernetes_tpu_torch.ops.assignment import solve_packed
+    from kubernetes_tpu_torch.scheduler.batch import _to_host
+
+    by_out = {id(c["out"][0]): c for c in calls}
+    want = {}
+    for p in dispatched:
+        call = by_out.get(id(p["assignments_dev"]))
+        if call is None:
+            raise AssertionError("a dispatch has no recorded solve")
+        handed = [None if t is None else t.cpu() for t in call["state"]]
+        asg, _, _, _, _ = solve_packed(
+            call["pieces"], *handed, config=call["config"],
+            mode=call["mode"], compress=call["compress"], device="cpu",
+        )
+        asg = asg.numpy()
+        dev_asg = _to_host(p["assignments_dev"])
+        if not np.array_equal(dev_asg, asg):
+            raise AssertionError(
+                f"a {call['mode']} solve differs from its CPU replay"
+            )
+        b = p["b"]
+        for k in range(b):
+            pod = p["solver_infos"][int(p["order"][k])].pod
+            want[pod.metadata.name] = (
+                p["names"][int(asg[k])] if asg[k] >= 0 else ""
+            )
+    return want
+
+
+def check_row_constraints(row, pods):
+    """The row's hard constraints on the final placements."""
+    placed = [(p, p.spec.node_name) for p in pods if p.spec.node_name]
+
+    def zone_of(node):  # node-{i} carries zone-{i % 10}
+        return f"zone-{int(node.split('-')[1]) % 10}"
+
+    name = row["name"]
+    if name.startswith("PodAntiAffinity"):
+        hosts = [n for p, n in placed if p.metadata.labels.get("color") == "red"]
+        if len(hosts) != len(set(hosts)):
+            raise AssertionError("two anti-affinity pods share a host")
+    if name.startswith("PodTopologySpread"):
+        per_zone = {f"zone-{z}": 0 for z in range(10)}
+        for p, n in placed:
+            if p.metadata.labels.get("app") == "spread":
+                per_zone[zone_of(n)] += 1
+        skew = max(per_zone.values()) - min(per_zone.values())
+        if skew > 120:
+            raise AssertionError(f"zone skew {skew} > 120")
+    if name.startswith("PodAffinity"):
+        base_zones = {
+            zone_of(n) for p, n in placed
+            if p.metadata.labels.get("peer") == "base"
+            and not p.metadata.name.startswith("measure-")
+        }
+        for p, n in placed:
+            if p.metadata.name.startswith("measure-") and (
+                zone_of(n) not in base_zones
+            ):
+                raise AssertionError("an affinity pod sits in a zone without a peer")
+
+
+def constrained_row(row, ck):
+    from kubernetes_tpu_torch.api.types import ObjectMeta, Service
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(
+        client, informers, batch=True, max_batch=MAX_CONSTRAINED_BATCH,
+    )
+    if sched.device.type != "cuda":
+        raise AssertionError(f"the scheduler solves on {sched.device}")
+    for i in range(N_NODES):
+        client.create_node(
+            make_node(f"node-{i}").capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+            .obj()
+        )
+    for svc, selector in row.get("services", []):
+        server.create(Service(
+            metadata=ObjectMeta(name=svc, namespace="default"),
+            selector=dict(selector),
+        ))
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    init_constrained = row["init_labels"] is None
+    init = [
+        row_pod(make_pod, row, f"init-{i}",
+                row["labels"] if init_constrained else row["init_labels"],
+                init_constrained)
+        for i in range(row["init_pods"])
+    ]
+    watch = BindWatcher(server, [p.metadata.name for p in init])
+    for lo in range(0, len(init), 100):
+        client.create_pods_bulk(init[lo:lo + 100])
+    sched.start()
+    if not watch.wait(300):
+        raise AssertionError(f"{row['name']}: the init pods did not all bind")
+    watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    setup_s = time.perf_counter() - t_setup
+
+    # record every measured dispatch and every solve it made (pieces, the
+    # device state handed in, the answer)
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch = sched._dispatch_solve
+    orig_solve = batch_mod.solve_packed
+
+    def recording_dispatch(*args, **kwargs):
+        p = orig_dispatch(*args, **kwargs)
+        if p is not None and id(p) not in seen:
+            seen.add(id(p))
+            dispatched.append(p)
+        return p
+
+    def recording_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw):
+        out = orig_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw)
+        calls.append(dict(
+            pieces=pieces, state=(alloc_in, valid_in, req_in, nzr_in),
+            out=out, mode=kw.get("mode", "greedy"),
+            config=kw.get("config"), compress=kw.get("compress", False),
+        ))
+        return out
+
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    counters0 = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    stages0 = dict(sched.stage_seconds)
+    measured = [
+        row_pod(make_pod, row, f"measure-{i}", row["labels"], True)
+        for i in range(MEASURED_PODS)
+    ]
+    names = [p.metadata.name for p in measured]
+    watch = BindWatcher(server, names)
+    create_times = {}
+    ck.launches = 0  # the count of THIS row's measured run
+    start = time.perf_counter()
+    try:
+        for lo in range(0, MEASURED_PODS, 100):
+            chunk = measured[lo:lo + 100]
+            now = time.perf_counter()
+            for p in chunk:
+                create_times[p.metadata.name] = now
+            client.create_pods_bulk(chunk)
+        completed = watch.wait(300)
+        elapsed = time.perf_counter() - start
+        launches = ck.launches
+        sched.wait_for_inflight_binds(timeout=60)
+    finally:
+        watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    pods, _ = client.list_pods()
+    placed = {p.metadata.name: p.spec.node_name for p in pods}
+    sched.stop()
+    informers.stop()
+
+    bound = sum(1 for n in names if placed.get(n))
+    if not completed or bound != MEASURED_PODS:
+        raise AssertionError(f"{row['name']}: only {bound} pods bound")
+    if set(k for k, v in tiers.items() if v) != {"cuda"}:
+        raise AssertionError(f"{row['name']}: batches off the cuda tier: {tiers}")
+    if launches <= 0:
+        raise AssertionError(f"{row['name']}: K2 never launched")
+    if any(moved.values()):
+        raise AssertionError(f"{row['name']}: a fallback counter moved: {moved}")
+    if any(p["tier"] != "cuda" for p in dispatched):
+        raise AssertionError(f"{row['name']}: a dispatch solved off the card")
+    check_row_constraints(row, pods)
+    t_replay = time.perf_counter()
+    want = replay_solves(calls, dispatched)
+    replay_s = time.perf_counter() - t_replay
+    mismatched = [n for n in names if want.get(n) != placed.get(n)]
+    if mismatched:
+        raise AssertionError(
+            f"{row['name']}: {len(mismatched)} placements differ from the "
+            f"replay, e.g. {mismatched[:3]}"
+        )
+    lat = sorted(watch.bind_times[n] - create_times[n] for n in names)
+    rec = dict(
+        row=row["name"], nodes=N_NODES, init_pods=row["init_pods"],
+        pods=MEASURED_PODS, bound=bound, seconds=elapsed,
+        pods_per_sec=MEASURED_PODS / elapsed,
+        p50_create_to_bind_s=lat[len(lat) // 2],
+        p99_create_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        batches=len(dispatched), batch_sizes=[p["b"] for p in dispatched],
+        modes=[c["mode"] for c in calls],
+        solves_by_tier=tiers, constrained_kernel_launches=launches,
+        counters_moved=moved, stage_seconds=stages, replay_equal=True,
+        replay_seconds=replay_s, setup_seconds=setup_s,
+    )
+    emit("constrained_bursts", **rec)
+    return rec
+
+
+def constrained_bursts(ck):
+    return [constrained_row(row, ck) for row in CONSTRAINED_ROWS]
+
+
+# -- phase 5: the burst -------------------------------------------------------
 
 class BindWatcher:
     """Bind wall time per pod from the apiserver's watch stream."""
@@ -359,7 +997,6 @@ def burst(gk, device=None):
         fallbacks=counter_total(metrics.solver_fallbacks),
         retries=counter_total(metrics.solve_retries),
         pods_fallback=sched.pods_fallback,
-        constrained_not_ported=sched.constrained_not_ported,
         envelope_fallbacks=sched.envelope_fallbacks,
         carry_divergences=sched.carry_divergences,
     )
@@ -395,7 +1032,6 @@ def burst(gk, device=None):
         fallbacks=counter_total(metrics.solver_fallbacks),
         retries=counter_total(metrics.solve_retries),
         pods_fallback=sched.pods_fallback,
-        constrained_not_ported=sched.constrained_not_ported,
         envelope_fallbacks=sched.envelope_fallbacks,
         carry_divergences=sched.carry_divergences,
     )
@@ -474,30 +1110,44 @@ def burst(gk, device=None):
     return rec
 
 
+def build_kernels(modules):
+    """Build every kernel library, one nvcc each, all started together
+    (a failed build re-raises here)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        list(pool.map(lambda mod: mod.build(), modules))
+    for mod in modules:
+        ptxas = [
+            line.strip() for line in mod.last_build.get("log", "").splitlines()
+            if "registers" in line or "spill" in line
+        ]
+        emit("build", kernel=mod.__name__.rsplit(".", 1)[-1],
+             seconds=mod.last_build["seconds"], ptxas=ptxas,
+             library=os.path.relpath(mod.last_build["library"]))
+    return time.perf_counter() - t0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     from kubernetes_tpu_torch.ops import assignment as asg_mod
+    from kubernetes_tpu_torch.ops import constrained_kernel as ck
     from kubernetes_tpu_torch.ops import greedy_kernel as gk
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit(
         "device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda,
     )
-    t0 = time.perf_counter()
-    gk.build()
-    ptxas = [
-        line.strip() for line in gk.last_build.get("log", "").splitlines()
-        if "registers" in line or "spill" in line
-    ]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-         library=os.path.relpath(gk.last_build["library"]))
+    build_s = build_kernels([gk, ck])
 
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
+    c_timing, c_max_err = constrained_kernel_vs_twin(ck, asg_mod)
     rec = burst(gk)
+    rows = constrained_bursts(ck)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -510,7 +1160,21 @@ def main():
         bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"],
         library_ms=None,  # no single PyTorch call computes this solve
+    ), dict(
+        name="constrained_solve",
+        route="cuda",
+        source="kubernetes_tpu_torch/csrc/constrained_solve.cu",
+        replaces="kubernetes_tpu/ops/pallas_constrained.py:182",
+        launches=sum(r["constrained_kernel_launches"] for r in rows),
+        max_abs_err=c_max_err,
+        ms=c_timing["ms"],
+        plain_ms=c_timing["plain_ms"],
+        bound_ms=c_timing["bound_ms"],
+        bound_by=c_timing["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this solve
     )]
+    emit("timing", build_seconds=build_s,
+         total_seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({

@@ -43,74 +43,11 @@
 // instead of re-reading it per step, and recomputing only the winner's
 // score after a bump instead of every node's.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "solve_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPodsCol = 3;        // tensors/node_tensor.py PODS
-constexpr int kNumFixedDims = 4;   // tensors/node_tensor.py NUM_FIXED_DIMS
-constexpr int kNoIndex = 0x7fffffff;
-constexpr float kMaxNodeScore = 100.0f;
-constexpr float kEps = 1e-4f;
-
-__device__ __forceinline__ int add_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int sub_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
-// floor((d0 + d1) / 2 + eps): the two per-dim terms summed dim0 + dim1
-__device__ __forceinline__ float half_sum_floor(float d0, float d1) {
-  return floorf(__fadd_rn(__fdiv_rn(__fadd_rn(d0, d1), 2.0f), kEps));
-}
-
-// ops/scores.py least/most/balanced for one node, f32 op by op
-__device__ __forceinline__ float combined_score(
-    float cap0, float cap1, float req0, float req1,
-    int w_least, int w_balanced, int w_most) {
-  const float safe0 = fmaxf(cap0, 1.0f);
-  const float safe1 = fmaxf(cap1, 1.0f);
-  const bool out0 = (cap0 == 0.0f) || (req0 > cap0);
-  const bool out1 = (cap1 == 0.0f) || (req1 > cap1);
-  float score = 0.0f;
-  if (w_least) {
-    float r0 = floorf(__fadd_rn(
-        __fdiv_rn(__fmul_rn(__fsub_rn(cap0, req0), kMaxNodeScore), safe0), kEps));
-    float r1 = floorf(__fadd_rn(
-        __fdiv_rn(__fmul_rn(__fsub_rn(cap1, req1), kMaxNodeScore), safe1), kEps));
-    float s = half_sum_floor(out0 ? 0.0f : r0, out1 ? 0.0f : r1);
-    score = __fadd_rn(score, __fmul_rn(static_cast<float>(w_least), s));
-  }
-  if (w_balanced) {
-    float f0 = (cap0 == 0.0f) ? 1.0f : __fdiv_rn(req0, safe0);
-    float f1 = (cap1 == 0.0f) ? 1.0f : __fdiv_rn(req1, safe1);
-    float diff = fabsf(__fsub_rn(f0, f1));
-    float ba = truncf(__fadd_rn(__fmul_rn(__fsub_rn(1.0f, diff), kMaxNodeScore), kEps));
-    if (f0 >= 1.0f || f1 >= 1.0f) ba = 0.0f;
-    score = __fadd_rn(score, __fmul_rn(static_cast<float>(w_balanced), ba));
-  }
-  if (w_most) {
-    float r0 = floorf(__fadd_rn(__fdiv_rn(__fmul_rn(req0, kMaxNodeScore), safe0), kEps));
-    float r1 = floorf(__fadd_rn(__fdiv_rn(__fmul_rn(req1, kMaxNodeScore), safe1), kEps));
-    float s = half_sum_floor(out0 ? 0.0f : r0, out1 ? 0.0f : r1);
-    score = __fadd_rn(score, __fmul_rn(static_cast<float>(w_most), s));
-  }
-  return score;
-}
-
-// (score, index) max with the lower index winning ties
-__device__ __forceinline__ void better(float& s, int& i, float os, int oi) {
-  if (os > s || (os == s && oi < i)) {
-    s = os;
-    i = oi;
-  }
-}
+using namespace solve;
 
 __global__ void __launch_bounds__(kThreads) greedy_solve_kernel(
     const int* __restrict__ alloc,          // [N, R]
@@ -130,8 +67,6 @@ __global__ void __launch_bounds__(kThreads) greedy_solve_kernel(
   __shared__ float s_score[kWarps];
   __shared__ int s_index[kWarps];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
 
   for (int j = tid; j < n; j += kThreads) {
     for (int d = 0; d < r; ++d) req_out[j * r + d] = req_in[j * r + d];
@@ -150,12 +85,7 @@ __global__ void __launch_bounds__(kThreads) greedy_solve_kernel(
     const int* preq = pod_req + static_cast<size_t>(t) * r;
     const int p0 = pod_nzr[t * 2];
     const int p1 = pod_nzr[t * 2 + 1];
-    // assignment._fits: every non-pods request <= 0 short-circuits to the
-    // pods-dim check
-    bool all_zero = true;
-    for (int d = 0; d < r; ++d) {
-      if (d != kPodsCol && preq[d] > 0) all_zero = false;
-    }
+    const bool all_zero = pod_all_zero(preq, r);
     int m = midx[t];
     m = m < 0 ? 0 : (m >= u ? u - 1 : m);  // gathers clamp, as in JAX
     const uint8_t* mask = rows + static_cast<size_t>(m) * n;
@@ -166,16 +96,7 @@ __global__ void __launch_bounds__(kThreads) greedy_solve_kernel(
       if (!valid[j] || !mask[j]) continue;
       const int* a = alloc + static_cast<size_t>(j) * r;
       const int* q = req_out + static_cast<size_t>(j) * r;
-      bool fits_all = true;
-      bool fits_pods = true;
-      for (int d = 0; d < r; ++d) {
-        const int s = preq[d];
-        bool ok = s <= sub_wrap(a[d], q[d]);
-        if (d >= kNumFixedDims && s == 0) ok = true;
-        fits_all = fits_all && ok;
-        if (d == kPodsCol) fits_pods = ok;
-      }
-      if (!(all_zero ? fits_pods : fits_all)) continue;
+      if (!fits_node(a, q, preq, r, all_zero)) continue;
       const float req0 = static_cast<float>(add_wrap(nzr_out[j * 2], p0));
       const float req1 = static_cast<float>(add_wrap(nzr_out[j * 2 + 1], p1));
       const float score = combined_score(
@@ -186,33 +107,15 @@ __global__ void __launch_bounds__(kThreads) greedy_solve_kernel(
         best_i = j;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      better(best, best_i, os, oi);
-    }
-    if (lane == 0) {
-      s_score[warp] = best;
-      s_index[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = s_score[lane];  // kWarps == 32: one slot per lane
-      best_i = s_index[lane];
-      for (int off = 16; off > 0; off >>= 1) {
-        const float os = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        better(best, best_i, os, oi);
-      }
-      if (lane == 0) {
-        const bool placed = best_i != kNoIndex;
-        asg[t] = placed ? best_i : -1;
-        if (placed) {
-          int* q = req_out + static_cast<size_t>(best_i) * r;
-          for (int d = 0; d < r; ++d) q[d] = add_wrap(q[d], preq[d]);
-          nzr_out[best_i * 2] = add_wrap(nzr_out[best_i * 2], p0);
-          nzr_out[best_i * 2 + 1] = add_wrap(nzr_out[best_i * 2 + 1], p1);
-        }
+    best_i = block_argmax(best, best_i, s_score, s_index);
+    if (tid == 0) {
+      const bool placed = best_i != kNoIndex;
+      asg[t] = placed ? best_i : -1;
+      if (placed) {
+        int* q = req_out + static_cast<size_t>(best_i) * r;
+        for (int d = 0; d < r; ++d) q[d] = add_wrap(q[d], preq[d]);
+        nzr_out[best_i * 2] = add_wrap(nzr_out[best_i * 2], p0);
+        nzr_out[best_i * 2 + 1] = add_wrap(nzr_out[best_i * 2 + 1], p1);
       }
     }
     __syncthreads();

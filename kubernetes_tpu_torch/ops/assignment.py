@@ -18,9 +18,12 @@ order. Ties in the score argmax pick the lowest node index; the reference
 reservoir-samples among ties (generic_scheduler.go:242), so decisions are
 identical modulo tie-break RNG.
 
-On the card the whole batch runs as ONE hand-written CUDA kernel
-(ops/greedy_kernel.py, csrc/greedy_solve.cu). ``_greedy_assign_impl``
-below is its plain PyTorch version: a Python loop over pods, each step
+On the card the whole batch runs as ONE hand-written CUDA kernel: the
+greedy solve (ops/greedy_kernel.py, csrc/greedy_solve.cu) or, for a
+batch with constraint or score-dynamic families, the constrained solve
+(ops/constrained_kernel.py, csrc/constrained_solve.cu).
+``_greedy_assign_impl`` and ``greedy_assign_constrained`` below are
+their plain PyTorch versions: a Python loop over pods, each step
 parallel over nodes, taken only for tensors on the CPU.
 
 All state, indices and outputs are int32 (torch defaults ``arange`` and
@@ -173,6 +176,407 @@ def greedy_assign_compact(
     )
 
 
+#: family tuple sizes for the packed constrained layout (the order
+#: matches greedy_assign_constrained's spread/affinity/scoring tuples)
+_N_SPREAD = 7
+_N_AFFINITY = 14
+_N_SCORING = 20
+
+_BIG = 1 << 20  # "no value" sentinel of the spread minimum and soft min
+#: f32 constants of the SelectorSpread zone blend ``f_node / 3.0 + (2.0 /
+#: 3.0) * f_zone`` as the reference's compiler (XLA) evaluates it: the
+#: division by the constant becomes a multiply by its f32 reciprocal,
+#: fused with the add into one FMA; the other product rounds on its own
+_THIRD = float(np.float32(1.0 / 3.0))
+_TWO_THIRDS = float(np.float32(2.0 / 3.0))
+
+
+def _fma32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (a fused multiply-add), for f32
+    tensors a, c and an f32-representable constant b. The product is exact
+    in float64; the float64 sum's rounding error is recovered (TwoSum) and
+    decides the one case where rounding the float64 sum to f32 would round
+    twice: a sum that lands exactly halfway between two f32 values."""
+    p = a.to(torch.float64) * b
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    toward = torch.where(s > r64, torch.inf, -torch.inf).to(torch.float32)
+    other = torch.nextafter(r, toward)
+    halfway = (s != r64) & ((r64 + other.to(torch.float64)) * 0.5 == s)
+    # exactly halfway in float64 but not in truth: round toward the error
+    fix = halfway & (err != 0)
+    pick_other = fix & ((other.to(torch.float64) > r64) == (err > 0))
+    return torch.where(pick_other, other, r)
+
+
+def row_node_values(node_value: torch.Tensor, row_key: torch.Tensor):
+    """[R, N] per-row node values: -1 where the node lacks the row's
+    topology key or the row is padding."""
+    k = node_value.shape[0]
+    vals = node_value[row_key.long().clamp(0, max(k - 1, 0))]
+    return torch.where(row_key[:, None] >= 0, vals, -1)
+
+
+def _gather_values(counts: torch.Tensor, vals: torch.Tensor):
+    """counts[row, vals[row, node]] with the value clamped into range,
+    as JAX's gather clamps: [R, V] x [R, N] -> [R, N]."""
+    v = counts.shape[1]
+    return counts.gather(1, vals.long().clamp(0, v - 1))
+
+
+def affinity_node_ok(
+    counts_aff,  # [Ra, V]
+    counts_anti,  # [Rt, V]
+    counts_exist,  # [Re, V]
+    vals_aff,  # [Ra, N] per-row node values (-1 absent)
+    vals_anti,  # [Rt, N]
+    vals_exist,  # [Re, N]
+    aff_rows,  # [C] the pod's affinity rows (-1 pad)
+    self_match,  # [] bool
+    anti_rows,  # [C]
+    exist_match,  # [Re] bool
+) -> torch.Tensor:
+    """The three required-affinity Filter checks for ONE pod against all
+    nodes, straight from interpodaffinity/filtering.go. Returns [N] bool.
+    A family with no rows checks nothing."""
+    n = vals_aff.shape[1]
+    ok = torch.ones(n, dtype=torch.bool, device=vals_aff.device)
+    if counts_aff.shape[0]:
+        # incoming affinity: every term's pair positive
+        # (nodeMatchesAllTopologyTerms :420)
+        aff_pos = (vals_aff >= 0) & (_gather_values(counts_aff, vals_aff) > 0)
+        live = aff_rows >= 0
+        safe_rows = aff_rows.long().clamp(0, counts_aff.shape[0] - 1)
+        aff_all = torch.where(live[:, None], aff_pos[safe_rows], True).all(0)
+        # first-pod escape (filtering.go:494): no match anywhere for the
+        # pod's term-set AND the pod matches its own terms
+        row_tot = counts_aff.sum(dim=1, dtype=torch.int32)
+        total = (row_tot[safe_rows] * live).sum(dtype=torch.int32)
+        ok = aff_all | ((total == 0) & self_match)
+    if counts_anti.shape[0]:
+        # incoming anti-affinity: any positive pair blocks
+        # (nodeMatchesAnyTopologyTerm :437)
+        anti_bad = (vals_anti >= 0) & (
+            _gather_values(counts_anti, vals_anti) > 0
+        )
+        safe_anti = anti_rows.long().clamp(0, counts_anti.shape[0] - 1)
+        bad = torch.where(
+            (anti_rows >= 0)[:, None], anti_bad[safe_anti], False
+        ).any(0)
+        ok = ok & ~bad
+    if counts_exist.shape[0]:
+        # existing pods' anti-affinity (:404)
+        exist_bad = (vals_exist >= 0) & (
+            _gather_values(counts_exist, vals_exist) > 0
+        )
+        ok = ok & ~(exist_match[:, None] & exist_bad).any(0)
+    return ok
+
+
+def greedy_assign_constrained(
+    allocatable: torch.Tensor,  # [N, R] int32
+    requested: torch.Tensor,  # [N, R] int32
+    nzr: torch.Tensor,  # [N, 2] int32
+    valid: torch.Tensor,  # [N] bool
+    pod_requests: torch.Tensor,  # [B, R] int32, solve order
+    pod_nzr: torch.Tensor,  # [B, 2] int32
+    mask_rows: torch.Tensor,  # [U, N] deduplicated static-mask rows
+    mask_index: torch.Tensor,  # [B] int32
+    active: torch.Tensor,  # [B] bool
+    spread: Tuple[torch.Tensor, ...],
+    affinity: Tuple[torch.Tensor, ...],
+    scoring: Tuple[torch.Tensor, ...],
+    config: GreedyConfig = GreedyConfig(),
+    pair_counts=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the constrained solve kernel (K2,
+    ops/constrained_kernel.py): NodeResourcesFit + static label mask +
+    hard topology spread (ops/topology.py) + required pod (anti-)affinity
+    (ops/affinity.py) + the full default score plugin set
+    (ops/scoring.py), one node-parallel step per pod in solve order, with
+    every constraint family's count tensors replayed as pods place so
+    within-batch interactions match the sequential addNominatedPods
+    semantics (interpodaffinity/filtering.go:75 updateWithPod,
+    podtopologyspread/filtering.go:127 updateWithPod).
+
+    ``spread``: (group_counts [G,V], value_valid [G,V], node_value [G,N],
+    pod_groups [B,C], pod_max_skew [B,C], pod_self [B,C], pod_match [B,G]).
+    ``affinity``: the AffinityBatch arrays (ops/affinity.py docstring).
+    ``scoring``: the ScoreBatch arrays (ops/scoring.py docstring); the
+    zone one-hot is read through ``zone_id``, the one map both are packed
+    from. All-zero / -1 tensors make a family a no-op.
+
+    Normalizations (max-scale for preferred NodeAffinity, reversed for
+    TaintToleration, zone-blended inversion for SelectorSpread,
+    flipped-linear for soft spread, [min, max] for preferred inter-pod
+    affinity) run per step over THAT step's feasible set, the reference's
+    normalize-over-filtered-nodes semantics. Every f32 expression keeps
+    the reference scan's operation order and constants. An inactive pod
+    is skipped: it never places, so it changes no state. Returns
+    (assignment [B] int32, requested' [N, R], nzr' [N, 2]); the inputs
+    are never written. ``pair_counts``, when a list, receives for each
+    active pod the number of nodes that pass fit, mask and valid, and the
+    number that are feasible (an int tensor of 2)."""
+    (sp_counts, sp_value_valid, sp_node_value,
+     sp_pod_groups, sp_pod_max_skew, sp_pod_self, sp_pod_match) = spread
+    (af_node_value, counts_aff, af_row_key_aff, af_pod_aff_rows,
+     af_pod_self_match, af_pod_bump_aff,
+     counts_anti, af_row_key_anti, af_pod_anti_rows, af_pod_bump_anti,
+     counts_exist, af_row_key_exist, af_pod_exist_match,
+     af_pod_bump_exist) = affinity
+    (sc_direct, sc_nodeaff, sc_taint, sc_pod_sig,
+     sel_counts, sc_zone_onehot, sc_zone_id, sc_pod_sel_group,
+     sc_pod_sel_match, soft_counts, sc_soft_node_value,
+     sc_pod_soft_groups, sc_pod_soft_match,
+     sc_ipa_node_value, ipa_counts, ipa_wcounts,
+     sc_pod_ipa_weight, sc_pod_ipa_match, sc_pod_ipa_bump,
+     sc_weights) = scoring
+    dev = allocatable.device
+    i32, f32 = torch.int32, torch.float32
+    n = allocatable.shape[0]
+    w_na, w_tt, w_sel, w_soft, w_ipa = (
+        sc_weights.to(f32)[k] for k in range(5)
+    )
+    # the count tensors are replayed in place on copies
+    sp_counts = sp_counts.to(i32).clone()
+    counts_aff = counts_aff.to(i32).clone()
+    counts_anti = counts_anti.to(i32).clone()
+    counts_exist = counts_exist.to(i32).clone()
+    sel_counts = sel_counts.to(i32).clone()
+    soft_counts = soft_counts.to(i32).clone()
+    ipa_counts = ipa_counts.to(f32).clone()
+    ipa_wcounts = ipa_wcounts.to(f32).clone()
+    g_sp = sp_counts.shape[0]
+    g_sel = sel_counts.shape[0]
+    g_soft = soft_counts.shape[0]
+    r_ipa, v_ipa = ipa_counts.shape
+    z = sc_zone_onehot.shape[1]
+
+    # per-row node values are static for the batch (rows bind to one
+    # topology key each); -1 marks "node lacks the key" / padding rows
+    vals_aff = row_node_values(af_node_value, af_row_key_aff)
+    vals_anti = row_node_values(af_node_value, af_row_key_anti)
+    vals_exist = row_node_values(af_node_value, af_row_key_exist)
+    ipa_has_val = sc_ipa_node_value >= 0
+    ipa_live = bool(r_ipa) and ipa_has_val.any()
+    ipa_idx = sc_ipa_node_value.long().clamp(0, max(v_ipa - 1, 0))
+    zone_ok = sc_zone_id >= 0
+    zone_idx = sc_zone_id.long().clamp(0, max(z - 1, 0))
+
+    def replay(counts, vals, bump, c, pi):
+        """A placed pod (``pi`` 1) bumps every row it matches at the
+        chosen node ``c``'s value of that row's topology key
+        (updateWithPod generalized to the batch); rows where the node
+        lacks the key take no bump."""
+        v = vals[:, c]
+        counts.index_put_(
+            (torch.arange(counts.shape[0], device=dev),
+             v.long().clamp(0, counts.shape[1] - 1)),
+            (bump * (v >= 0) * pi).to(counts.dtype),
+            accumulate=True,
+        )
+
+    static_mask = mask_rows[mask_index.long().clamp(0, mask_rows.shape[0] - 1)]
+    caps = allocatable[:, :2]
+    n_sig = sc_direct.shape[0]
+    req_state, nzr_state = requested, nzr
+    no_node = torch.tensor(NO_NODE, dtype=i32, device=dev)
+    node_iota = torch.arange(n, dtype=i32, device=dev)
+    assignments = []
+    for t, is_active in enumerate(active.tolist()):
+        if not is_active:
+            assignments.append(no_node)
+            continue
+        pod_req = pod_requests[t]
+        p_nzr = pod_nzr[t]
+        fit_ok = (
+            _fits(allocatable - req_state, pod_req) & static_mask[t] & valid
+        )
+        feasible = fit_ok
+
+        # -- topology spread (filtering.go:322 skew rule) ---------------
+        if g_sp:
+            groups = sp_pod_groups[t]
+            safe_g = groups.long().clamp(0, g_sp - 1)
+            counts_g = sp_counts[safe_g]  # [C, V]
+            min_v = torch.where(
+                sp_value_valid[safe_g], counts_g, _BIG
+            ).min(dim=1).values
+            vals = sp_node_value[safe_g]  # [C, N]
+            node_count = _gather_values(counts_g, vals)
+            ok = (vals >= 0) & (
+                node_count + sp_pod_self[t][:, None] - min_v[:, None]
+                <= sp_pod_max_skew[t][:, None]
+            )
+            feasible = feasible & torch.where(
+                (groups >= 0)[:, None], ok, True
+            ).all(0)
+
+        feasible = feasible & affinity_node_ok(
+            counts_aff, counts_anti, counts_exist,
+            vals_aff, vals_anti, vals_exist,
+            af_pod_aff_rows[t], af_pod_self_match[t].to(torch.bool),
+            af_pod_anti_rows[t], af_pod_exist_match[t].to(torch.bool),
+        )
+
+        score = _combined_score(caps, nzr_state, p_nzr, config)
+
+        # -- non-resource score plugins (ops/scoring.py) ----------------
+        sig = sc_pod_sig[t].long().clamp(0, n_sig - 1)
+        # static direct rows (ImageLocality + NodePreferAvoidPods,
+        # pre-weighted, no normalize)
+        score = score + sc_direct[sig].to(f32)
+        # preferred NodeAffinity: max-scale normalize over the feasible set
+        na_raw = sc_nodeaff[sig]
+        na_max = torch.where(feasible, na_raw, 0).max()
+        score = score + torch.where(
+            na_max > 0,
+            w_na * torch.floor(
+                100.0 * na_raw.to(f32) / na_max.clamp(min=1).to(f32)
+            ),
+            0.0,
+        )
+        # TaintToleration: reversed normalize (fewer intolerable
+        # PreferNoSchedule taints => higher; max 0 => all 100)
+        tt_raw = sc_taint[sig]
+        tt_max = torch.where(feasible, tt_raw, 0).max()
+        tt_scaled = torch.floor(
+            100.0 * tt_raw.to(f32) / tt_max.clamp(min=1).to(f32)
+        )
+        score = score + w_tt * torch.where(
+            tt_max > 0, 100.0 - tt_scaled, 100.0
+        )
+        # SelectorSpread: inverted counts, zone-blended 2/3
+        # (default_pod_topology_spread.go:107)
+        sel_group = sc_pod_sel_group[t]
+        if g_sel:
+            sel_raw = sel_counts[sel_group.long().clamp(0, g_sel - 1)]
+            sel_feas = torch.where(feasible, sel_raw, 0)
+            sel_max_node = sel_feas.max()
+            zsum = torch.zeros(z, dtype=i32, device=dev).index_add_(
+                0, zone_idx, torch.where(zone_ok, sel_feas, 0)
+            )
+            have_zones = (feasible & zone_ok).any()
+            sel_max_zone = zsum.max()
+            f_node = torch.where(
+                sel_max_node > 0,
+                100.0 * (sel_max_node - sel_raw).to(f32)
+                / sel_max_node.clamp(min=1).to(f32),
+                100.0,
+            )
+            zs_n = zsum[zone_idx]
+            f_zone = torch.where(
+                sel_max_zone > 0,
+                100.0 * (sel_max_zone - zs_n).to(f32)
+                / sel_max_zone.clamp(min=1).to(f32),
+                100.0,
+            )
+            blended = torch.where(
+                have_zones & zone_ok,
+                _fma32(f_node, _THIRD, _TWO_THIRDS * f_zone),
+                f_node,
+            )
+            score = score + torch.where(
+                sel_group >= 0, w_sel * torch.floor(blended), 0.0
+            )
+        # soft topology spread: flipped-linear against (total - min) over
+        # feasible eligible nodes (podtopologyspread/scoring.go:199)
+        if g_soft:
+            soft_groups = sc_pod_soft_groups[t]
+            sg_safe = soft_groups.long().clamp(0, g_soft - 1)
+            soft_nv = sc_soft_node_value[sg_safe]  # [C, N]
+            soft_cnt = _gather_values(soft_counts[sg_safe], soft_nv)
+            rows_live = (soft_groups >= 0)[:, None]
+            soft_raw = torch.where(
+                rows_live & (soft_nv >= 0), soft_cnt, 0
+            ).sum(0, dtype=i32)
+            soft_eligible = torch.where(rows_live, soft_nv >= 0, True).all(0)
+            has_soft = (soft_groups >= 0).any()
+            dom = feasible & soft_eligible
+            soft_total = torch.where(dom, soft_raw, 0).sum(dtype=i32)
+            soft_min = torch.where(
+                dom.any(), torch.where(dom, soft_raw, _BIG).min(), _BIG
+            )
+            soft_diff = (soft_total - soft_min).to(f32)
+            soft_score = torch.where(
+                soft_diff == 0,
+                100.0,
+                torch.where(
+                    ~soft_eligible,
+                    0.0,
+                    torch.floor(
+                        100.0 * (soft_total - soft_raw).to(f32)
+                        / torch.where(soft_diff == 0, 1.0, soft_diff)
+                    ),
+                ),
+            )
+            score = score + torch.where(has_soft, w_soft * soft_score, 0.0)
+        # preferred inter-pod affinity (interpodaffinity/scoring.go):
+        # raw(node) = sum_r weight_r * counts_r[val] (incoming terms)
+        #           + sum_r match_r * wcounts_r[val] (existing pods'
+        #             symmetric terms), normalized [min,max] -> [0,100]
+        # over the feasible set with zero-seeded extremes (:294). Every
+        # term is an integer below 2^24, so the f32 sum is exact in any
+        # order.
+        if r_ipa:
+            ipa_raw = (
+                torch.where(ipa_has_val, ipa_counts.gather(1, ipa_idx), 0.0)
+                * sc_pod_ipa_weight[t][:, None]
+                + torch.where(
+                    ipa_has_val, ipa_wcounts.gather(1, ipa_idx), 0.0
+                ) * sc_pod_ipa_match[t][:, None]
+            ).sum(0)
+            ipa_mn = torch.clamp(
+                torch.where(feasible, ipa_raw, 0.0).min(), max=0.0
+            )
+            ipa_mx = torch.clamp(
+                torch.where(feasible, ipa_raw, 0.0).max(), min=0.0
+            )
+            ipa_diff = ipa_mx - ipa_mn
+            ipa_score = torch.where(
+                ipa_diff > 0,
+                torch.floor(
+                    100.0 * (ipa_raw - ipa_mn) / ipa_diff.clamp(min=1e-9)
+                    + 1e-4
+                ),
+                0.0,
+            )
+            score = score + torch.where(ipa_live, w_ipa * ipa_score, 0.0)
+
+        score = torch.where(feasible, score, -torch.inf)
+        choice = torch.argmax(score).to(i32)  # first max wins
+        placed = feasible.any()
+        if pair_counts is not None:
+            pair_counts.append(torch.stack((fit_ok.sum(), feasible.sum())))
+        assignments.append(torch.where(placed, choice, no_node))
+
+        pi = placed.to(i32)
+        chosen = ((node_iota == choice) & placed).to(i32)
+        req_state = req_state + chosen[:, None] * pod_req[None, :]
+        nzr_state = nzr_state + chosen[:, None] * p_nzr[None, :]
+        c = choice.long()
+        replay(sp_counts, sp_node_value, sp_pod_match[t] > 0, c, pi)
+        sel_counts[:, c] += sc_pod_sel_match[t] * pi
+        replay(soft_counts, sc_soft_node_value, sc_pod_soft_match[t], c, pi)
+        replay(counts_aff, vals_aff, af_pod_bump_aff[t], c, pi)
+        replay(counts_anti, vals_anti, af_pod_bump_anti[t], c, pi)
+        replay(counts_exist, vals_exist, af_pod_bump_exist[t], c, pi)
+        # preferred-affinity replay: the placed pod is an "existing pod"
+        # for every later batch pod -- it bumps each row's match count
+        # where it matches, and contributes its own terms' signed mass
+        replay(ipa_counts, sc_ipa_node_value, sc_pod_ipa_match[t], c, pi)
+        replay(ipa_wcounts, sc_ipa_node_value, sc_pod_ipa_bump[t], c, pi)
+    if assignments:
+        out = torch.stack(assignments)
+    else:
+        out = torch.zeros(0, dtype=i32, device=dev)
+    return out, req_state, nzr_state
+
+
 def _unpack_buffer(buf: torch.Tensor, layout: Tuple) -> dict:
     """Re-slice the single uploaded int32 buffer into named arrays.
     ``kind`` restores dtypes: 'i' int32, 'b' bool, 'f' float32 (bitcast
@@ -256,6 +660,8 @@ def _solve_packed(
     layout: Tuple,  # ((name, shape, kind), ...) describing buf slices
     config: GreedyConfig = GreedyConfig(),
     compress: bool = False,  # int16 resident carry: widen in, narrow out
+    mode: str = "greedy",
+    rows=None,  # constrained_kernel.Rows: each family's live rows
 ):
     """Solve from a SINGLE uploaded buffer. Returns (assignment,
     requested', nzr', allocatable, valid) -- the last two so the caller
@@ -275,7 +681,7 @@ def _solve_packed(
         arrs, alloc, valid, req_state, nzr_state
     )
     assignment, req_out, nzr_out, alloc, valid = _packed_solve_tail(
-        arrs, alloc, valid, req_state, nzr_state, config
+        arrs, alloc, valid, req_state, nzr_state, config, mode, rows
     )
     if compress:
         req_out = req_out.to(torch.int16)
@@ -283,17 +689,37 @@ def _solve_packed(
     return assignment, req_out, nzr_out, alloc, valid
 
 
-def _packed_solve_tail(arrs, alloc, valid, req_state, nzr_state, config):
-    """The greedy solve on the (possibly row-patched) node state: the
+def _packed_solve_tail(
+    arrs, alloc, valid, req_state, nzr_state, config, mode, rows,
+):
+    """The solve on the (possibly row-patched) node state: the
     hand-written kernel for tensors on the card, its plain version for
-    tensors on the CPU (ops/greedy_kernel.greedy_solve decides)."""
-    from kubernetes_tpu_torch.ops.greedy_kernel import greedy_solve
-
-    assignment, req_out, nzr_out = greedy_solve(
+    tensors on the CPU (ops/greedy_kernel.greedy_solve and
+    ops/constrained_kernel.constrained_solve decide). A constrained
+    batch's family tensors ride the buffer as ``sp0..sp6``,
+    ``af0..af13`` and ``sc0..sc19``; absent families arrive as
+    ConstPiece constants."""
+    common = (
         alloc, req_state, nzr_state, valid, arrs["req"], arrs["nzr"],
         arrs["rows"].to(torch.bool), arrs["midx"],
-        arrs["active"].to(torch.bool), config=config,
+        arrs["active"].to(torch.bool),
     )
+    if mode == "constrained":
+        from kubernetes_tpu_torch.ops.constrained_kernel import (
+            constrained_solve,
+        )
+
+        assignment, req_out, nzr_out = constrained_solve(
+            *common,
+            tuple(arrs[f"sp{i}"] for i in range(_N_SPREAD)),
+            tuple(arrs[f"af{i}"] for i in range(_N_AFFINITY)),
+            tuple(arrs[f"sc{i}"] for i in range(_N_SCORING)),
+            config=config, rows=rows,
+        )
+    else:
+        from kubernetes_tpu_torch.ops.greedy_kernel import greedy_solve
+
+        assignment, req_out, nzr_out = greedy_solve(*common, config=config)
     return assignment, req_out, nzr_out, alloc, valid
 
 
@@ -301,9 +727,12 @@ def kernel_build_counts() -> dict:
     """Kernel builds per family in this process, keyed by a stable name:
     the runtime cache watchdog (scheduler/batch.py) diffs this per batch,
     so a build after warmup shows up as a mid-run recompile."""
-    from kubernetes_tpu_torch.ops import greedy_kernel
+    from kubernetes_tpu_torch.ops import constrained_kernel, greedy_kernel
 
-    return {"greedy_kernel": greedy_kernel.builds}
+    return {
+        "greedy_kernel": greedy_kernel.builds,
+        "constrained_kernel": constrained_kernel.builds,
+    }
 
 
 def apply_assignment_delta(
@@ -422,14 +851,22 @@ def solve_packed(
     """Host-side companion of _solve_packed: concatenates the pieces
     (int32 / bool / float32 / packed int16 -- see _unpack_buffer's kind
     codes) and dispatches ONE host->device copy + one solve on
-    ``device`` (the card unless the caller names the CPU). A kernel
-    that fails to build or launch raises: nothing here retries on
-    another path."""
-    if mode != "greedy":
+    ``device`` (the card unless the caller names the CPU). A
+    constrained batch's live row counts (constrained_kernel.Rows) come
+    from its host-side family pieces. A kernel that fails to build or launch raises:
+    nothing here retries on another path."""
+    if mode not in ("greedy", "constrained"):
         raise ValueError(
-            f"solve mode {mode!r} is not ported yet: the constrained "
-            "and sinkhorn solves arrive in a later slice of the port"
+            f"solve mode {mode!r} is not ported yet: the sinkhorn solve "
+            "arrives in a later slice of the port"
         )
+    rows = None
+    if mode == "constrained":
+        from kubernetes_tpu_torch.ops.constrained_kernel import (
+            constrained_rows,
+        )
+
+        rows = constrained_rows(dict(pieces))
     device = resolve_device(device)
     layout = tuple(
         (name, arr.shape, _piece_kind(arr)) for name, arr in pieces
@@ -444,7 +881,8 @@ def solve_packed(
     buf_d = torch.from_numpy(buf).to(device)
     return _solve_packed(
         buf_d, alloc_in, valid_in, req_in, nzr_in,
-        layout=layout, config=config, compress=compress,
+        layout=layout, config=config, compress=compress, mode=mode,
+        rows=rows,
     )
 
 

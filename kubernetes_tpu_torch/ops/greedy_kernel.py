@@ -8,22 +8,14 @@ is ``ops/assignment.greedy_assign_compact`` (the loop over pods in
 ``_greedy_assign_impl``): ``greedy_solve`` takes it only for tensors that
 lie on the CPU. A tensor on the card launches the kernel or raises.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a
-library with a plain C interface, loaded with ctypes, at first use, into
-``build/kernels/`` at the root of the checkout (listed in .gitignore).
-The library's file name carries a hash of the source, so an edited
-source never loads a stale build. Nothing here runs nvcc at import.
+Build: ``ops/kernel_build.build_library`` (nvcc for ``sm_90a`` into a
+library with a plain C interface, loaded with ctypes, at first use).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from typing import Tuple
 
 import torch
@@ -32,40 +24,24 @@ from kubernetes_tpu_torch.ops.assignment import (
     GreedyConfig,
     greedy_assign_compact,
 )
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "greedy_solve.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+from kubernetes_tpu_torch.ops.kernel_build import (
+    KernelError,
+    build_library,
+    check_tensor as _check,
 )
+
+__all__ = ["KernelError", "build", "greedy_solve", "greedy_solve_cuda"]
 
 #: times the kernel library was built (or loaded) in this process --
 #: the cache watchdog's "compile" count
 builds = 0
 #: kernel launches: incremented where the kernel is launched, nowhere else
 launches = 0
-#: what the last build did: {"seconds", "command", "log"}
+#: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
 
 _lib = None
 _lib_lock = threading.Lock()
-
-
-class KernelError(RuntimeError):
-    """The kernel did not build, load or launch. Never caught on the
-    solve path: a card whose kernel cannot run must fail loudly, not
-    degrade to another solver."""
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise KernelError("nvcc not found: the CUDA toolkit is required")
-    return path
 
 
 def build() -> ctypes.CDLL:
@@ -75,49 +51,16 @@ def build() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libgreedy_solve_{digest}.so")
-        t0 = time.perf_counter()
-        log = ""
-        cmd = []
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelError(
-                    f"nvcc failed ({proc.returncode}) building "
-                    f"{SOURCE}:\n{log}"
-                )
-            os.replace(tmp, so)  # atomic publish
-        lib = ctypes.CDLL(so)
+        lib, info = build_library("greedy_solve")
         fn = lib.greedy_solve_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p
         ]
-        last_build.update(
-            seconds=time.perf_counter() - t0, command=cmd, log=log,
-            library=so,
-        )
+        last_build.update(info)
         builds += 1
         _lib = lib
         return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
-    if t.device != device:
-        raise KernelError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise KernelError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise KernelError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    return t.contiguous()
 
 
 def greedy_solve_cuda(

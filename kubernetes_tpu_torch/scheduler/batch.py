@@ -20,10 +20,10 @@ spread+nodeSelector eligibility coupling -- see solver_supported) fall
 back to the sequential oracle path (attempt_schedule), exactly like the
 reference runs unsupported pods through extenders.
 
-In this port the greedy solve is ONE hand-written CUDA kernel
-(ops/greedy_kernel.py) on torch tensors resident on the card. The
-constrained solve is not ported yet: a batch that would need it takes
-the sequential path (route label ``constrained_not_ported``).
+In this port each solve is ONE hand-written CUDA kernel on torch
+tensors resident on the card: the greedy solve (ops/greedy_kernel.py)
+and, for a batch with spread, affinity, host-port or score-dynamic
+families, the constrained solve (ops/constrained_kernel.py).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from kubernetes_tpu_torch.framework.interface import (
 )
 from kubernetes_tpu_torch.device import resolve_device, synchronize
 from kubernetes_tpu_torch.ops.assignment import (
+    ConstPiece,
     GreedyConfig,
     NO_NODE,
     apply_assignment_delta,
@@ -65,7 +66,9 @@ from kubernetes_tpu_torch.ops.assignment import (
 from kubernetes_tpu_torch.ops.affinity import (
     add_host_port_rows,
     cluster_has_required_anti_affinity,
+    noop_affinity_tensors,
     pack_affinity_batch,
+    pad_affinity_tensors,
 )
 from kubernetes_tpu_torch.ops.host_masks import (
     mask_rows_upload,
@@ -75,9 +78,15 @@ from kubernetes_tpu_torch.ops.scoring import (
     ScoreEnvelopeExceeded,
     batch_selector_spread_live,
     cluster_has_affinity_scoring,
+    noop_score_tensors,
     pack_score_batch,
+    pad_score_tensors,
 )
-from kubernetes_tpu_torch.ops.topology import pack_spread_batch
+from kubernetes_tpu_torch.ops.topology import (
+    noop_spread_tensors,
+    pack_spread_batch,
+    pad_spread_tensors,
+)
 from kubernetes_tpu_torch.robustness.circuit import SolveTimeout
 from kubernetes_tpu_torch.robustness.containment import (
     ContainmentConfig,
@@ -657,9 +666,6 @@ class BatchScheduler(Scheduler):
         self.carry_compress_enabled = (
             os.environ.get("KTPU_CARRY_COMPRESS", "1") != "0"
         )
-        # batches a constrained solve would have taken, routed to the
-        # sequential path instead (the constrained solve is not ported)
-        self.constrained_not_ported = 0
 
     # -- one batch ----------------------------------------------------------
 
@@ -2081,19 +2087,6 @@ class BatchScheduler(Scheduler):
             or affinity is not None
             or score_batch is not None
         )
-        if constrained:
-            # the constrained solve (and its kernel) is not ported yet:
-            # the batch takes the sequential path, as the JAX package
-            # routes constrained batches above its constrained node cap
-            self._drain_pending()
-            self.constrained_not_ported += 1
-            span.finish(
-                tier=TIER_SEQUENTIAL, routed="constrained_not_ported"
-            )
-            for pi in solver_infos:
-                self.pods_fallback += 1
-                self.attempt_schedule(pi)
-            return None
 
         # -- device-state generation handshake (see _DeviceNodeState) -------
         # Runs after every route-to-host bail-out above: it reconciles the
@@ -2189,7 +2182,40 @@ class BatchScheduler(Scheduler):
                 allocatable=nt.allocatable, valid=nt.valid,
                 compress=compress,
             )
-        solve_mode = self.solver_mode
+        if constrained:
+
+            def fam_pieces(prefix, packed_arrs, noop_arrs):
+                """Present families ride the buffer; absent ones become
+                ConstPiece markers (constants made on the device instead
+                of ~1MB of uploaded zeros/sentinels per batch)."""
+                if packed_arrs is not None:
+                    for i, a in enumerate(packed_arrs):
+                        pieces.append((f"{prefix}{i}", np.asarray(a)))
+                else:
+                    for i, a in enumerate(noop_arrs):
+                        pieces.append(
+                            (f"{prefix}{i}", ConstPiece.from_uniform(a))
+                        )
+
+            fam_pieces(
+                "sp",
+                pad_spread_tensors(spread, padded)
+                if spread is not None else None,
+                noop_spread_tensors(padded, nt.capacity),
+            )
+            fam_pieces(
+                "af",
+                pad_affinity_tensors(affinity, padded)
+                if affinity is not None else None,
+                noop_affinity_tensors(padded, nt.capacity),
+            )
+            fam_pieces(
+                "sc",
+                pad_score_tensors(score_batch, padded)
+                if score_batch is not None else None,
+                noop_score_tensors(padded, nt.capacity),
+            )
+        solve_mode = "constrained" if constrained else self.solver_mode
 
         def run_device():
             if poison_key is not None:
@@ -2234,8 +2260,14 @@ class BatchScheduler(Scheduler):
         # pending (exhaustion with pending batches drains and
         # redispatches from fresh host state instead). It is never
         # offered while the solver's tensors are on the card: a failure
-        # there raises instead of moving the batch to the CPU.
-        if self.device.type == "cpu" and not self._pending_exists():
+        # there raises instead of moving the batch to the CPU. It
+        # replays the unconstrained scan only, so a constrained batch
+        # never gets it.
+        if (
+            self.device.type == "cpu"
+            and not constrained
+            and not self._pending_exists()
+        ):
             attempts.append((TIER_HOST_GREEDY, run_host_greedy))
         # pre-solve carry refs: the gang quorum fixup restores these to
         # rewind a re-solved batch to its pre-batch device state without
@@ -3916,16 +3948,18 @@ class BatchScheduler(Scheduler):
     # -- warmup --------------------------------------------------------------
 
     def warmup(self) -> None:
-        """Build the solver kernel and run the three packed-upload
+        """Build the solver kernels and run the three packed-upload
         layouts the run loop can hit (cold: static + carry ride the
         buffer; carry refresh; steady carry reuse with the delta-scatter
-        slots) once each, so no measured batch pays the kernel build or
-        a first-use cost (the reference harness similarly schedules
-        warm-up pods before b.ResetTimer, scheduler_perf_test.go:130).
-        The kernel takes any batch size without a rebuild, so one small
-        pad serves every batch. All pods are inactive padding, so every
-        solve leaves the state unchanged. A kernel that fails to build
-        or launch raises here; warmup swallows nothing."""
+        slots) once each, for the greedy and the constrained solve, so no
+        measured batch pays a kernel build or a first-use cost (the
+        reference harness similarly schedules warm-up pods before
+        b.ResetTimer, scheduler_perf_test.go:130). The kernels take any
+        batch size and any combination of families without a rebuild,
+        so one small pad serves every batch. All pods are inactive
+        padding, so every solve leaves the state unchanged. A kernel
+        that fails to build or launch raises here; warmup swallows
+        nothing."""
         snapshot = self.algorithm.snapshot
         self.cache.update_snapshot(snapshot)
         nt = self.tensor_cache.update(snapshot)
@@ -3958,10 +3992,42 @@ class BatchScheduler(Scheduler):
         )
         # steady-state dispatches always carry the (indices, rows)
         # delta-scatter slots (empty slots drop on the device)
+        delta_slots = _delta_slot_pieces(n, r)
         solve_packed(
-            base + _delta_slot_pieces(n, r), alloc_d, valid_d, req_d, nzr_d,
-            **kw,
+            base + delta_slots, alloc_d, valid_d, req_d, nzr_d, **kw
         )
+        # the constrained kernel and its layouts: cold, refresh and steady
+        # with all three families live, then the steady layout with each
+        # family alone (the others ride as ConstPiece device constants, as
+        # an absent family does in dispatch)
+        kw["mode"] = "constrained"
+        noops = {
+            "sp": noop_spread_tensors(POD_BUCKET, n),
+            "af": noop_affinity_tensors(POD_BUCKET, n),
+            "sc": noop_score_tensors(POD_BUCKET, n),
+        }
+
+        def families(live):
+            return [
+                (f"{prefix}{i}", np.asarray(a) if prefix in live
+                 else ConstPiece.from_uniform(a))
+                for prefix, arrs in noops.items()
+                for i, a in enumerate(arrs)
+            ]
+
+        fam = families(noops)
+        solve_packed(
+            base + static_pieces + carry_pieces + fam,
+            None, None, None, None, **kw,
+        )
+        solve_packed(
+            base + carry_pieces + fam, alloc_d, valid_d, None, None, **kw
+        )
+        for live in (noops, ("sp",), ("af",), ("sc",)):
+            solve_packed(
+                base + delta_slots + families(live),
+                alloc_d, valid_d, req_d, nzr_d, **kw,
+            )
         synchronize(dev)
         # seal the build watchdog: every kernel build from here on is a
         # mid-run build (counted AND flight-recorded)

@@ -265,6 +265,6 @@ def test_carry_from_numpy_feeds_the_same_solve():
 def test_solve_packed_rejects_unported_modes():
     with pytest.raises(ValueError, match="later slice"):
         torch_asg.solve_packed(
-            _batch(0), None, None, None, None, mode="constrained",
+            _batch(0), None, None, None, None, mode="sinkhorn",
             device="cpu",
         )

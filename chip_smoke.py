@@ -8,10 +8,10 @@ line is printed only when every phase passed):
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and
    CUDA versions.
-2. ``build``: builds the greedy-solve (K1) and constrained-solve (K2)
-   kernels from kubernetes_tpu_torch/csrc/, one nvcc each, both started
-   together; prints each one's seconds and ptxas's register and spill
-   report.
+2. ``build``: builds the greedy-solve (K1), constrained-solve (K2) and
+   victim-search (K3) kernels from kubernetes_tpu_torch/csrc/, one nvcc
+   each, all started together; prints each one's seconds and ptxas's
+   register and spill report.
 3. ``kernel_vs_twin``: K1 against its plain PyTorch version on the card,
    on seeded inputs at the burst's full shape (B=4,096 pods, N=5,632 node
    rows, R=4, U=8 mask rows) and at R=6 with scalar dims, with all-zero
@@ -32,6 +32,15 @@ line is printed only when every phase passed):
    (the other two as constants). Tolerance zero on assignments,
    requested' and nzr'. K2 is timed with CUDA events after a warmup
    launch, the plain version with the host clock.
+4b. ``preempt_kernel_vs_twin``: K3 against its plain PyTorch version on
+   the card, tolerance zero on chosen nodes, victim and violating masks,
+   violation counts and state'. Cases: (a) Preemption/5000's wave shape
+   (N=5,000, V=16 with nodes short of pods, R=4, 1,032 pods of one class
+   plus inactive padding); (b) four priorities x three request rows x
+   eight candidate rows with 64 pre-existing nominations; (c) four
+   PDBs, some at zero budget; (d) V=48 with R=6 (scalar dims), past the
+   TPU kernel's 32-victim cap. K3 is timed with CUDA events after a
+   warmup launch, the plain version with the host clock.
 5. ``burst``: the main path end to end through the port's entry points,
    as bench.py builds it: APIServer, Client, InformerFactory,
    new_scheduler(batch=True, max_batch=4096) on the card, 5,000 nodes
@@ -52,8 +61,24 @@ line is printed only when every phase passed):
    recorded solve equals a CPU replay of its pieces and handed carry
    through the plain version, the placements equal that replay, and the
    row's hard constraints hold. Prints pods/s, p50/p99 create-to-bind,
-   the batch sizes, K2's launches and the stage seconds.
-7. ``kernels``: every ported kernel with its launches on the main path,
+   the batch sizes, K2's launches and the stage seconds. The
+   anti-affinity row runs a second time at max_batch 256, so its
+   measured pods land in several batches and K2 solves back to back on
+   the resident carry (at least four launches, each replayed).
+7. ``preemption_burst``: Preemption/5000
+   (benchmarks/config/performance-config.yaml:305-312, built as
+   benchmarks/runner.py:1040-1066 builds it) on a fresh stack through
+   the entry points: new_scheduler(batch=True) on the card, warmup(),
+   50,000 fill pods of 3 CPU / 6Gi at priority 0 (10 fill each 32-CPU
+   node), 32 warm preemptors, then 1,000 measured pods of 3 CPU / 6Gi at
+   priority 100. Asserts every preemptor binds, no node holds more than
+   10 pods, each preemptor took exactly one priority-0 victim, every
+   wave ran on the "cuda" tier with K3 launching and no host preemption
+   or fallback counter moving, and every K3 call equals a CPU replay of
+   its recorded pack and pods through the plain version. Prints pods/s,
+   p50/p99 create-to-bind, the waves and their sizes and seconds, K3's
+   launches, the victims, the pack seconds and the stage seconds.
+8. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -606,6 +631,12 @@ CONSTRAINED_ROWS = [
     dict(name="ServiceSpread/5000", init_pods=1000,
          init_labels={"svc": "web"}, labels={"svc": "web"},
          services=[("web", {"svc": "web"})]),
+    # the anti-affinity row again at max_batch 256: the measured pods land
+    # in several batches, so K2 solves back to back on the resident carry
+    dict(name="PodAntiAffinity/5000 in batches of 256", init_pods=500,
+         init_labels=None, labels={"color": "red"},
+         affinity=dict(key=HOST_KEY, match={"color": "red"}, anti=True),
+         max_batch=256, min_launches=4),
 ]
 MEASURED_PODS = 1000
 MAX_CONSTRAINED_BATCH = 1024
@@ -715,9 +746,8 @@ def constrained_row(row, ck):
     server = APIServer()
     client = Client(server)
     informers = InformerFactory(server)
-    sched = new_scheduler(
-        client, informers, batch=True, max_batch=MAX_CONSTRAINED_BATCH,
-    )
+    max_batch = row.get("max_batch", MAX_CONSTRAINED_BATCH)
+    sched = new_scheduler(client, informers, batch=True, max_batch=max_batch)
     if sched.device.type != "cuda":
         raise AssertionError(f"the scheduler solves on {sched.device}")
     for i in range(N_NODES):
@@ -767,8 +797,14 @@ def constrained_row(row, ck):
 
     def recording_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw):
         out = orig_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw)
+        # a copy of the state handed in, taken in stream order: a later
+        # solve's row patches may update the resident carry in place
+        handed = tuple(
+            None if t is None else t.clone()
+            for t in (alloc_in, valid_in, req_in, nzr_in)
+        )
         calls.append(dict(
-            pieces=pieces, state=(alloc_in, valid_in, req_in, nzr_in),
+            pieces=pieces, state=handed,
             out=out, mode=kw.get("mode", "greedy"),
             config=kw.get("config"), compress=kw.get("compress", False),
         ))
@@ -831,8 +867,8 @@ def constrained_row(row, ck):
         raise AssertionError(f"{row['name']}: only {bound} pods bound")
     if set(k for k, v in tiers.items() if v) != {"cuda"}:
         raise AssertionError(f"{row['name']}: batches off the cuda tier: {tiers}")
-    if launches <= 0:
-        raise AssertionError(f"{row['name']}: K2 never launched")
+    if launches < row.get("min_launches", 1):
+        raise AssertionError(f"{row['name']}: K2 launched {launches} times")
     if any(moved.values()):
         raise AssertionError(f"{row['name']}: a fallback counter moved: {moved}")
     if any(p["tier"] != "cuda" for p in dispatched):
@@ -849,8 +885,9 @@ def constrained_row(row, ck):
         )
     lat = sorted(watch.bind_times[n] - create_times[n] for n in names)
     rec = dict(
-        row=row["name"], nodes=N_NODES, init_pods=row["init_pods"],
-        pods=MEASURED_PODS, bound=bound, seconds=elapsed,
+        row=row["name"], max_batch=max_batch, nodes=N_NODES,
+        init_pods=row["init_pods"], pods=MEASURED_PODS, bound=bound,
+        seconds=elapsed,
         pods_per_sec=MEASURED_PODS / elapsed,
         p50_create_to_bind_s=lat[len(lat) // 2],
         p99_create_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
@@ -866,6 +903,421 @@ def constrained_row(row, ck):
 
 def constrained_bursts(ck):
     return [constrained_row(row, ck) for row in CONSTRAINED_ROWS]
+
+
+# -- phase 7: the victim-search kernel vs its twin ----------------------------
+
+# Preemption/5000's wave: 1,032 preemptors (32 warm + 1,000 measured) of
+# 3 CPU / 6Gi at priority 100 (benchmarks/config/performance-config.yaml
+# :305-312), here all in one wave over 5,000 nodes
+PREEMPT_WAVE = 1032
+GIB_KIB = 1 << 20
+
+
+def preempt_problem(seed, n=N_NODES, v=16, r=4, b=PREEMPT_WAVE, pad=8,
+                    classes=False, m=0, p=0):
+    """A seeded wave at the main path's width: nodes of 32 CPU / 64Gi /
+    110 pods holding v/2..v victims (the rest of the slots inactive, as
+    a node short of pods leaves them) sorted priority-desc, full up to
+    0-4 free CPUs; ``pad`` inactive pods after the wave. ``classes``:
+    4 priorities x 3 request rows x 8 candidate rows in class runs, else
+    one class. ``m`` pre-existing nominations, ``p`` PDBs (some at zero
+    budget). Returns host arrays in preempt_batch_plain's order."""
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:, 0] = 32000
+    alloc[:, 1] = 64 * GIB_KIB
+    alloc[:, 3] = 110
+    if r > 4:
+        alloc[:, 4:] = rng.choice([0, 4, 8], (n, r - 4))
+    count = rng.integers(v // 2, v + 1, n)
+    active = np.arange(v)[None, :] < count[:, None]
+    prio = np.sort(rng.choice([0, 0, 0, 5, 50], (n, v)), axis=1)[:, ::-1]
+    prio = np.where(active, prio, -(1 << 31)).astype(np.int32)
+    start = (rng.random((n, v)) * 1000).astype(np.float32)
+    req = np.zeros((n, v, r), np.int32)
+    req[:, :, 0] = rng.choice([1000, 2000, 3000], (n, v)) * 16 // v
+    req[:, :, 1] = rng.choice([1, 2, 4], (n, v)) * GIB_KIB * 16 // v
+    req[:, :, 3] = 1
+    if r > 4:
+        req[:, :, 4:] = rng.choice([0, 0, 1], (n, v, r - 4))
+    req *= active[:, :, None]
+    base = req.sum(axis=1).astype(np.int32)
+    free = rng.choice([0, 1000, 2000, 4000], n, p=[0.3, 0.3, 0.38, 0.02])
+    base[:, 0] = np.maximum(base[:, 0], 32000 - free)
+    pdb_match = np.zeros((n, v, p), bool)
+    pdb_allowed = np.zeros(p, np.int32)
+    if p:
+        pdb_match[:] = (rng.random((n, v, p)) < 0.4) & active[:, :, None]
+        pdb_allowed[:] = rng.choice([0, 1, 3], p)
+        # every victim below priority 10 is under a spent budget: a pod
+        # of priority 10 can only take those, so some victims violate
+        pdb_match[:, :, 0] = active & (prio < 10)
+        pdb_allowed[0] = 0
+    nom_req = np.zeros((m, r), np.int32)
+    nom_req[:, 0] = 2000
+    nom_req[:, 1] = 2 * GIB_KIB
+    nom_req[:, 3] = 1
+    nom_prio = rng.choice([10, 50, 80, 100, 120], m).astype(np.int32)
+    nom_node = rng.integers(0, n, m).astype(np.int32)
+    total = b + pad
+    reqs = np.zeros((3, r), np.int32)
+    reqs[:, 0] = [3000, 1000, 6000]
+    reqs[:, 1] = np.array([6, 2, 8]) * GIB_KIB
+    reqs[:, 3] = 1
+    if r > 4:
+        reqs[1, 4] = 1
+    if classes:
+        prio_k = rng.choice([100, 80, 50, 10], total)
+        req_k = rng.integers(0, 3, total)
+        row_k = rng.integers(0, 8, total)
+        order = np.lexsort((row_k, req_k, -prio_k))
+        prio_k, req_k, row_k = prio_k[order], req_k[order], row_k[order]
+        rows = rng.random((8, n)) > 0.1
+    else:
+        prio_k = np.full(total, 100)
+        req_k = np.zeros(total, np.int64)
+        row_k = np.zeros(total, np.int64)
+        rows = rng.random((1, n)) > 0.01
+    pods_active = np.arange(total) < b
+    return [
+        alloc, base, prio, start, req, active, pdb_match, pdb_allowed,
+        nom_req, nom_prio, nom_node, reqs[req_k], prio_k.astype(np.int32),
+        rows, row_k.astype(np.int32), pods_active,
+    ]
+
+
+def k3_operations(host, chosen):
+    """The operations this run's data needs, counted from K3's body
+    (csrc/preempt_solve.cu): per class, every node's key build; per
+    active pod, one compare per node for the argmin and the chosen
+    node's key build. A node's key build: 2 compares per nomination, 2
+    per victim slot to find the eligible ones, per eligible victim R
+    subtractions to remove it, 2P for its budgets and a reprieve fit
+    (R adds, 3R+1 for the fit test), 3R+1 for the first fit, and 6 per
+    victim slot for the key. Replays the carry with the kernel's own
+    (checked) choices, in numpy."""
+    (alloc, base, prio, _, req, active, pdb_match, _, _, nom_prio, _,
+     pods_req, pods_prio, _, cand_index, pods_active) = host
+    n, v = prio.shape
+    r = alloc.shape[1]
+    p = pdb_match.shape[2]
+    m = nom_prio.shape[0]
+
+    def node_ops(elig):
+        return 2 * m + 8 * v + elig * (r + 2 * p + 4 * r + 1) + 3 * r + 1
+
+    ops = 0
+    prev = None
+    for t in range(len(pods_prio)):
+        cls = (int(pods_prio[t]), int(cand_index[t]), pods_req[t].tobytes())
+        elig = (active & (prio < pods_prio[t])).sum(axis=1)
+        if cls != prev:
+            ops += int(node_ops(elig).sum())
+            prev = cls
+        if pods_active[t]:
+            ops += 2 * n
+            if chosen[t] >= 0:
+                ops += int(node_ops(elig[chosen[t]]))
+    return ops
+
+
+def preempt_kernel_vs_twin(pk, pre_mod):
+    cases = [
+        ("preemption5000_wave", dict(seed=0)),
+        ("classes_nominations", dict(seed=1, b=512, classes=True, m=64)),
+        ("pdbs", dict(seed=2, b=512, classes=True, p=4)),
+        ("v48_scalar_r6", dict(seed=3, b=512, v=48, r=6, classes=True)),
+    ]
+    timing = None
+    max_err = 0.0
+    for name, kw in cases:
+        host = preempt_problem(**kw)
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in host]
+        torch.cuda.synchronize()
+        k_out = pk.preempt_solve_cuda(*dev)  # warm launch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_out = pre_mod.preempt_batch_plain(*dev)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        names = ("chosen", "victims", "violating", "num_violating", "state")
+        equal = {nm: bool(torch.equal(k, q))
+                 for nm, k, q in zip(names, k_out, p_out)}
+        err = max(
+            float((k.to(torch.int64) - q.to(torch.int64)).abs().max())
+            if k.numel() else 0.0
+            for k, q in zip(k_out, p_out)
+        )
+        max_err = max(max_err, err)
+        reps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            pk.preempt_solve_cuda(*dev)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        chosen = k_out[0].cpu().numpy()
+        ops = k3_operations(host, chosen)
+        n_bytes = sum(a.nbytes for a in host) + sum(
+            t.numel() * t.element_size() for t in k_out
+        )
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        # integer operations issue at no more than the unfused fp32 rate
+        ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+        n, v = host[2].shape
+        rec = dict(
+            case=name, n=n, v=v, r=host[0].shape[1], p=host[6].shape[2],
+            m=host[9].shape[0], b=len(host[12]), u=host[13].shape[0],
+            active=int(host[15].sum()), equal=equal, max_abs_err=err,
+            placed=int((chosen >= 0).sum()),
+            victims=int(pre_mod.unpack_bits(
+                k_out[1].cpu().numpy(), v).sum()),
+            violating=int(k_out[3].sum()),
+            ms=ms, plain_ms=plain_ms, ops=ops, bytes=n_bytes,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms > ops_ms else "operations",
+        )
+        emit("preempt_kernel_vs_twin", **rec)
+        if not all(equal.values()):
+            raise AssertionError(f"K3 disagrees with its twin on {name}")
+        if rec["placed"] == 0:
+            raise AssertionError(f"{name}: the wave placed no preemptor")
+        if name == "preemption5000_wave":
+            timing = rec
+    return timing, max_err
+
+
+# -- phase 8: the preemption burst --------------------------------------------
+
+PREEMPT_NODES = 5000
+PREEMPT_FILL = 50000      # init_pods: 3 CPU / 6Gi at priority 0
+PREEMPT_WARM = 32         # init_preempt
+PREEMPT_MEASURED = 1000   # measure_pods: 3 CPU / 6Gi at priority 100
+
+
+def preemption_burst(pk, gk):
+    """Preemption/5000 as benchmarks/runner.py:1040-1066 builds it, on a
+    fresh stack through the port's entry points."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.ops import preemption as pre_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    def pods(prefix, count, priority):
+        return [
+            make_pod(f"{prefix}-{i}").container(cpu="3000m", memory="6Gi")
+            .priority(priority).obj()
+            for i in range(count)
+        ]
+
+    def create(batch):
+        for lo in range(0, len(batch), 1000):
+            client.create_pods_bulk(batch[lo:lo + 1000])
+
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(
+        client, informers, batch=True, max_batch=MAX_CONSTRAINED_BATCH,
+    )
+    if sched.device.type != "cuda" or sched.preemptor.device.type != "cuda":
+        raise AssertionError("the scheduler or its preemptor is off the card")
+    for i in range(PREEMPT_NODES):
+        client.create_node(
+            make_node(f"node-{i}").capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+            .obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    fill = pods("init", PREEMPT_FILL, 0)
+    watch = BindWatcher(server, [p.metadata.name for p in fill])
+    create(fill)
+    sched.start()
+    if not watch.wait(600):
+        raise AssertionError("the fill pods did not all bind")
+    watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    fill_s = time.perf_counter() - t_setup
+
+    # record every K3 call (its operands and answer), every nomination's
+    # victims, the pack builds and the waves
+    calls, applied, packs, waves = [], [], [], []
+    preemptor = sched.preemptor
+    orig_solve = pk.preempt_solve
+    orig_pack = pre_mod.pack_preemption_state
+    orig_apply = preemptor._apply_preemption
+    orig_wave = preemptor.preempt_batch
+
+    def recording_solve(*args):
+        out = orig_solve(*args)
+        calls.append((args, out))
+        return out
+
+    def timed_pack(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig_pack(*args, **kw)
+        packs.append(time.perf_counter() - t0)
+        return out
+
+    def recording_apply(prof, pod, node_name, victims, **kw):
+        applied.append((pod.metadata.name, node_name,
+                        [v.spec.priority for v in victims]))
+        return orig_apply(prof, pod, node_name, victims, **kw)
+
+    def timed_wave(prof, items):
+        t0 = time.perf_counter()
+        out = orig_wave(prof, items)
+        waves.append((len(items), time.perf_counter() - t0))
+        return out
+
+    pk.preempt_solve = recording_solve
+    pre_mod.pack_preemption_state = timed_pack
+    preemptor._apply_preemption = recording_apply
+    preemptor.preempt_batch = timed_wave
+    try:
+        warm = pods("warmpre", PREEMPT_WARM, 100)
+        watch = BindWatcher(server, [p.metadata.name for p in warm])
+        create(warm)
+        if not watch.wait(300):
+            raise AssertionError("the warm preemptors did not all bind")
+        watch.stop()
+        sched.wait_for_inflight_binds(timeout=60)
+        warm_waves = len(waves)
+        setup_s = time.perf_counter() - t_setup
+
+        tiers0 = dict(preemptor.ladder.solves_by_tier)
+        counters0 = dict(
+            fallbacks=counter_total(metrics.solver_fallbacks),
+            retries=counter_total(metrics.solve_retries),
+            pods_fallback=sched.pods_fallback,
+            envelope_fallbacks=sched.envelope_fallbacks,
+            host_preemptions=preemptor.host_preemptions,
+        )
+        stages0 = dict(sched.stage_seconds)
+        measured = pods("measure", PREEMPT_MEASURED, 100)
+        names = [p.metadata.name for p in measured]
+        watch = BindWatcher(server, names)
+        create_times = {}
+        pk.launches = 0  # the counts of THIS run of the main path
+        gk.launches = 0
+        start = time.perf_counter()
+        for lo in range(0, PREEMPT_MEASURED, 100):
+            chunk = measured[lo:lo + 100]
+            now = time.perf_counter()
+            for p in chunk:
+                create_times[p.metadata.name] = now
+            client.create_pods_bulk(chunk)
+        completed = watch.wait(600)
+        elapsed = time.perf_counter() - start
+        launches, k1_launches = pk.launches, gk.launches
+        sched.wait_for_inflight_binds(timeout=60)
+        watch.stop()
+    finally:
+        pk.preempt_solve = orig_solve
+        pre_mod.pack_preemption_state = orig_pack
+        preemptor._apply_preemption = orig_apply
+        preemptor.preempt_batch = orig_wave
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0)
+        for k, v in preemptor.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+        host_preemptions=preemptor.host_preemptions,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    listed, _ = client.list_pods()
+    placed = {p.metadata.name: p.spec.node_name for p in listed}
+    victims_by_tier = dict(preemptor.victims_by_tier)
+    sched.stop()
+    informers.stop()
+
+    preemptors = [p.metadata.name for p in warm] + names
+    bound = sum(1 for nm in preemptors if placed.get(nm))
+    if not completed or bound != len(preemptors):
+        raise AssertionError(f"only {bound}/{len(preemptors)} preemptors bound")
+    per_node = {}
+    for node in placed.values():
+        if node:
+            per_node[node] = per_node.get(node, 0) + 1
+    if max(per_node.values()) > 10:  # 10 pods of 3 CPU fill a 32-CPU node
+        raise AssertionError("a node holds more than 10 pods of 3 CPU")
+    evicted = [f"init-{i}" for i in range(PREEMPT_FILL)
+               if f"init-{i}" not in placed]
+    # a preemptor may be nominated again (its retry raced the eviction
+    # into the cache): the node it holds then needs no further victim
+    victims_of = {nm: [] for nm in preemptors}
+    for nm, _, prios in applied:
+        victims_of.setdefault(nm, []).extend(prios)
+    taken = sorted({len(v) for v in victims_of.values()})
+    prios = sorted({p for v in victims_of.values() for p in v})
+    renominated = len(applied) - len({nm for nm, _, _ in applied})
+    if (set(victims_of) != set(preemptors) or taken != [1] or prios != [0]
+            or len(evicted) != len(preemptors)):
+        raise AssertionError(
+            f"victims per preemptor {taken} of priorities {prios}, "
+            f"{len(applied)} nominations ({renominated} again), "
+            f"{len(evicted)} pods evicted for {len(preemptors)} preemptors"
+        )
+    if set(k for k, v in tiers.items() if v) != {"cuda"}:
+        raise AssertionError(f"waves off the cuda tier: {tiers}")
+    if set(victims_by_tier) != {"cuda"}:
+        raise AssertionError(f"victims booked off the cuda tier: {victims_by_tier}")
+    if launches <= 0 or k1_launches <= 0:
+        raise AssertionError(
+            f"the measured run launched K3 {launches} and K1 "
+            f"{k1_launches} times"
+        )
+    if preemptor.host_preemptions:
+        raise AssertionError("a preemption took the host oracle")
+    if any(moved.values()):
+        raise AssertionError(f"a fallback counter moved: {moved}")
+
+    # every recorded wave against a CPU replay of its pack and pods
+    t_replay = time.perf_counter()
+    for args, out in calls:
+        want = pre_mod.preempt_batch_plain(*(a.cpu() for a in args))
+        if not all(torch.equal(o.cpu(), w) for o, w in zip(out, want)):
+            raise AssertionError("a wave's K3 answer differs from its replay")
+    replay_s = time.perf_counter() - t_replay
+    lat = sorted(watch.bind_times[nm] - create_times[nm] for nm in names)
+    measured_waves = waves[warm_waves:]
+    rec = dict(
+        workload="Preemption/5000", nodes=PREEMPT_NODES, fill=PREEMPT_FILL,
+        warm=PREEMPT_WARM, pods=PREEMPT_MEASURED, bound=bound,
+        seconds=elapsed, pods_per_sec=PREEMPT_MEASURED / elapsed,
+        p50_create_to_bind_s=lat[len(lat) // 2],
+        p99_create_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        waves=len(measured_waves),
+        wave_sizes=[sz for sz, _ in measured_waves],
+        wave_seconds=[s for _, s in measured_waves],
+        warm_waves=warm_waves, k3_calls=len(calls),
+        k3_call_sizes=[int(a[11].shape[0]) for a, _ in calls],
+        preempt_kernel_launches=launches, greedy_kernel_launches=k1_launches,
+        victims=len(evicted), victims_by_tier=victims_by_tier,
+        nominations=len(applied), renominations=renominated,
+        pack_seconds=packs, solves_by_tier=tiers, counters_moved=moved,
+        stage_seconds=stages, replay_equal=True, replay_seconds=replay_s,
+        fill_seconds=fill_s, setup_seconds=setup_s,
+    )
+    emit("preemption_burst", **rec)
+    return rec
 
 
 # -- phase 5: the burst -------------------------------------------------------
@@ -1111,8 +1563,9 @@ def burst(gk, device=None):
 
 
 def build_kernels(modules):
-    """Build every kernel library, one nvcc each, all started together
-    (a failed build re-raises here)."""
+    """Build every kernel library, one nvcc each, all started together so
+    the builds' time stays that of the slowest as kernels are added (a
+    failed build re-raises here)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         list(pool.map(lambda mod: mod.build(), modules))
@@ -1134,6 +1587,8 @@ def main():
     from kubernetes_tpu_torch.ops import assignment as asg_mod
     from kubernetes_tpu_torch.ops import constrained_kernel as ck
     from kubernetes_tpu_torch.ops import greedy_kernel as gk
+    from kubernetes_tpu_torch.ops import preempt_kernel as pk
+    from kubernetes_tpu_torch.ops import preemption as pre_mod
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1142,12 +1597,14 @@ def main():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda,
     )
-    build_s = build_kernels([gk, ck])
+    build_s = build_kernels([gk, ck, pk])
 
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
     c_timing, c_max_err = constrained_kernel_vs_twin(ck, asg_mod)
+    p_timing, p_max_err = preempt_kernel_vs_twin(pk, pre_mod)
     rec = burst(gk)
     rows = constrained_bursts(ck)
+    pre = preemption_burst(pk, gk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -1172,6 +1629,18 @@ def main():
         bound_ms=c_timing["bound_ms"],
         bound_by=c_timing["bound_by"],
         library_ms=None,  # no single PyTorch call computes this solve
+    ), dict(
+        name="preempt_solve",
+        route="cuda",
+        source="kubernetes_tpu_torch/csrc/preempt_solve.cu",
+        replaces="kubernetes_tpu/ops/pallas_preempt.py:69",
+        launches=pre["preempt_kernel_launches"],
+        max_abs_err=p_max_err,
+        ms=p_timing["ms"],
+        plain_ms=p_timing["plain_ms"],
+        bound_ms=p_timing["bound_ms"],
+        bound_by=p_timing["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this search
     )]
     emit("timing", build_seconds=build_s,
          total_seconds=time.perf_counter() - t_start)

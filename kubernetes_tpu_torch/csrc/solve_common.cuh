@@ -1,5 +1,6 @@
-// Device helpers shared by the greedy (K1) and constrained (K2) solves:
-// the fit test, the resource score and the (score, index) argmax step.
+// Device helpers shared by the greedy (K1), constrained (K2) and
+// preemption (K3) kernels: the fit test, the resource score, the
+// (score, index) argmax step and a block-wide minimum of a struct key.
 // Each matches its plain PyTorch version in ops/assignment.py and
 // ops/scores.py op for op: every float op is an explicit round-to-nearest
 // intrinsic, so nvcc never contracts a multiply-add into an FMA (the
@@ -10,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace solve {
 
@@ -127,6 +129,55 @@ __device__ __forceinline__ int block_argmax(
     better(best, best_i, os, oi);
   }
   return __shfl_sync(0xffffffffu, best_i, 0);
+}
+
+// __shfl_down_sync / __shfl_sync of a trivially copyable struct, word by word
+template <class T>
+__device__ __forceinline__ T shfl_down_words(T v, int off) {
+  static_assert(sizeof(T) % sizeof(int) == 0, "shuffle whole 32-bit words");
+  int w[sizeof(T) / sizeof(int)];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / sizeof(int)); ++i) {
+    w[i] = __shfl_down_sync(0xffffffffu, w[i], off);
+  }
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
+template <class T>
+__device__ __forceinline__ T shfl_words(T v, int src) {
+  int w[sizeof(T) / sizeof(int)];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / sizeof(int)); ++i) {
+    w[i] = __shfl_sync(0xffffffffu, w[i], src);
+  }
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
+// block-wide minimum of a key under a strict total order `less` (a key
+// that carries a unique index makes the result independent of the
+// reduction order). Every thread passes its own key and gets the block's
+// minimum back. s_warp is a kWarps-long shared array. Contains
+// __syncthreads(): call from every thread of the block.
+template <class T, class Less>
+__device__ __forceinline__ T block_min(T v, T* s_warp, Less less) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    const T o = shfl_down_words(v, off);
+    if (less(o, v)) v = o;
+  }
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  v = s_warp[lane];  // kWarps == 32: one slot per lane
+  for (int off = 16; off > 0; off >>= 1) {
+    const T o = shfl_down_words(v, off);
+    if (less(o, v)) v = o;
+  }
+  return shfl_words(v, 0);
 }
 
 }  // namespace solve

@@ -727,11 +727,16 @@ def kernel_build_counts() -> dict:
     """Kernel builds per family in this process, keyed by a stable name:
     the runtime cache watchdog (scheduler/batch.py) diffs this per batch,
     so a build after warmup shows up as a mid-run recompile."""
-    from kubernetes_tpu_torch.ops import constrained_kernel, greedy_kernel
+    from kubernetes_tpu_torch.ops import (
+        constrained_kernel,
+        greedy_kernel,
+        preempt_kernel,
+    )
 
     return {
         "greedy_kernel": greedy_kernel.builds,
         "constrained_kernel": constrained_kernel.builds,
+        "preempt_kernel": preempt_kernel.builds,
     }
 
 

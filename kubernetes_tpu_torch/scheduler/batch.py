@@ -3538,6 +3538,11 @@ class BatchScheduler(Scheduler):
                         prof, [(pi.pod, fe) for pi, fe, _ in items]
                     )
             except Exception:
+                if self.device.type == "cuda":
+                    # a fault of the card's victim search (K3) is not
+                    # answered by an empty wave that requeues and retries
+                    # it: it propagates, as a batch solve's does
+                    raise
                 logger.exception("batched device preemption failed")
                 nominated = [""] * len(items)
             evict_ok = victim_uids is not None
@@ -3951,7 +3956,8 @@ class BatchScheduler(Scheduler):
         """Build the solver kernels and run the three packed-upload
         layouts the run loop can hit (cold: static + carry ride the
         buffer; carry refresh; steady carry reuse with the delta-scatter
-        slots) once each, for the greedy and the constrained solve, so no
+        slots) once each, for the greedy and the constrained solve, and
+        the victim search once (when a Preemptor is wired), so no
         measured batch pays a kernel build or a first-use cost (the
         reference harness similarly schedules warm-up pods before
         b.ResetTimer, scheduler_perf_test.go:130). The kernels take any
@@ -4028,6 +4034,20 @@ class BatchScheduler(Scheduler):
                 base + delta_slots + families(live),
                 alloc_d, valid_d, req_d, nzr_d, **kw,
             )
+        if self.preemptor is not None:
+            # the victim search (K3): a one-node wave of an inactive pod
+            from kubernetes_tpu_torch.ops.preempt_kernel import preempt_solve
+            from kubernetes_tpu_torch.ops.preemption import to_device
+
+            z = np.zeros
+            preempt_solve(*to_device((
+                z((1, r), np.int32), z((1, r), np.int32), z((1, 1), np.int32),
+                z((1, 1), np.float32), z((1, 1, r), np.int32),
+                z((1, 1), bool), z((1, 1, 0), bool), z(0, np.int32),
+                z((0, r), np.int32), z(0, np.int32), z(0, np.int32),
+                z((1, r), np.int32), z(1, np.int32), z((1, 1), bool),
+                z(1, np.int32), z(1, bool),
+            ), dev))
         synchronize(dev)
         # seal the build watchdog: every kernel build from here on is a
         # mid-run build (counted AND flight-recorded)

@@ -7,10 +7,14 @@ nodesWherePreemptionMightHelp :1033, podEligibleToPreemptOthers :1054)
 and pkg/scheduler/scheduler.go:392 (sched.preempt host-side actions), with
 MoreImportantPod/GetPodStartTime from pkg/scheduler/util/utils.go:38-83.
 
-In this port only the host victim search runs: the device victim search
-(the JAX package's preemption wave and its Pallas kernel) is not ported
-yet, so ``device_eligible`` answers False and every preemption -- the
-batch path's failed group included -- takes the host oracle.
+A device-eligible pod (a plain pod, see ``device_eligible``) preempts
+through the device victim search (ops/preemption.py): on the card a
+whole wave is one launch of kernel K3 (ops/preempt_kernel.py), and a
+fault there raises -- nothing steps down to the host oracle. On the CPU
+the search runs K3's plain PyTorch version (the ``torch`` tier) and the
+host oracle below is the floor. Every other pod takes the host oracle,
+which is also the parity reference. Drain planning
+(``plan_replacements``) waits for the lifecycle slice of the port.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.selectors import labels_match_selector
 from kubernetes_tpu_torch.api.types import Pod, PodDisruptionBudget
-from kubernetes_tpu_torch.cache.node_info import NodeInfo
+from kubernetes_tpu_torch.cache.node_info import NodeInfo, pod_host_ports
+from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.framework.interface import (
     CycleState,
     FitError,
@@ -30,6 +35,8 @@ from kubernetes_tpu_torch.framework.interface import (
 )
 from kubernetes_tpu_torch.robustness.faults import FaultPoint, get_injector
 from kubernetes_tpu_torch.robustness.ladder import (
+    TIER_CUDA,
+    TIER_TORCH,
     LadderExhausted,
     SolverLadder,
 )
@@ -167,7 +174,8 @@ class Preemptor:
     })
 
     def __init__(
-        self, algorithm, queue, client, disruption=None, ladder=None
+        self, algorithm, queue, client, disruption=None, ladder=None,
+        device=None,
     ) -> None:
         self.algorithm = algorithm  # GenericScheduler (snapshot + filters)
         self.queue = queue
@@ -179,12 +187,26 @@ class Preemptor:
         # A denied victim set refunds the attempt's grants and the
         # preemptor requeues without a nomination.
         self.disruption = disruption
-        # the wave's solver ladder: its device tiers wait for the ported
-        # victim search, so every wave takes the per-pod host oracle.
-        # Own instance by default so wave faults never poison the batch
-        # solver's breakers; new_scheduler mirrors the batch robustness
-        # config in.
+        # the wave's solver ladder: ONE device tier named by where the
+        # victim search runs -- "cuda" (K3, no step down) on the card,
+        # "torch" (its plain version, then the host-oracle floor) on the
+        # CPU. Own instance by default so wave faults never poison the
+        # batch solver's breakers; new_scheduler mirrors the batch
+        # robustness config in.
         self.ladder = ladder if ladder is not None else SolverLadder()
+        # where the victim search runs: the card unless the caller names
+        # the CPU (new_scheduler passes the batch scheduler's device)
+        self.device = resolve_device(device)
+        # device victim-search state: tensors cached per snapshot
+        # generation so a burst of failed pods packs (and uploads) once
+        from kubernetes_tpu_torch.tensors import NodeTensorCache
+
+        self._tensor_cache = NodeTensorCache()
+        self._pack = None
+        self._pack_key = None
+        self._pack_cv = threading.Condition()
+        self._nt_lock = threading.Lock()  # dims/topology interner guard
+        self._prewarm_busy = False
         self.device_preemptions = 0
         self.host_preemptions = 0
         # wave observability (bench solver labels + perf-matrix
@@ -291,31 +313,313 @@ class Preemptor:
         return victims, num_violating, True
 
     def device_eligible(self, prof, pod: Pod, cluster_anti=None) -> bool:
-        """True when the device victim search answers for this pod. The
-        device search is not ported yet (ROADMAP Queue 2, K3), so no pod
-        is eligible and every preemption takes the host oracle."""
-        return False
+        """True when the device victim search is exact for this pod:
+        plain pod (solver_supported), no gang semantics, no extenders,
+        no custom filter plugins, and no existing-pod required
+        anti-affinity (whose removal the device fit model can't see).
+        ``cluster_anti`` may carry a precomputed
+        cluster_has_required_anti_affinity answer (the batch path checks
+        eligibility for hundreds of pods against one snapshot)."""
+        from kubernetes_tpu_torch.api.types import POD_GROUP_LABEL
+        from kubernetes_tpu_torch.ops.affinity import (
+            cluster_has_required_anti_affinity,
+        )
+        from kubernetes_tpu_torch.scheduler.batch import solver_supported
+
+        if not solver_supported(pod):
+            return False
+        if any(v.pvc_claim_name for v in pod.spec.volumes):
+            # bound-simple-PV pods are solver-safe for PLACEMENT, but
+            # the victim search keeps them on the host oracle: volume
+            # state can change between the wave and the retry, and the
+            # exact oracle re-resolves claims per node
+            return False
+        # solver_supported admits required pod (anti-)affinity and hard
+        # spread (the batch solver models them via count tensors); the
+        # victim search does NOT -- a preemptor carrying either must take
+        # the host oracle or it would evict victims for a node its
+        # constraint still rejects
+        if pod.spec.topology_spread_constraints:
+            return False
+        # host-port preemptors too: static_mask_compact bakes existing
+        # port conflicts into the candidate mask, so a node whose only
+        # remedy is evicting the current port holder is never searched.
+        # The reference re-runs NodePorts with victims removed
+        # (generic_scheduler.go:940); the host oracle does the same here.
+        if pod_host_ports(pod):
+            return False
+        a = pod.spec.affinity
+        if a is not None and (
+            a.pod_affinity is not None or a.pod_anti_affinity is not None
+        ):
+            return False
+        if pod.metadata.labels.get(POD_GROUP_LABEL):
+            return False
+        if getattr(self.algorithm, "extenders", []):
+            return False
+        filters = set(prof.list_plugins().get("filter", []))
+        if not filters <= self.DEVICE_MODELED_FILTERS:
+            return False
+        if cluster_anti is None:
+            cluster_anti = cluster_has_required_anti_affinity(
+                self.algorithm.snapshot
+            )
+        if cluster_anti:
+            return False
+        return True
 
     def _device_answers(
-        self, pods: List[Pod], potentials, pdbs, prio_override=None,
-        snapshot=None,
+        self, pods: List[Pod], potentials, pdbs
     ) -> Tuple[List[Tuple[str, List[Pod], int]], str]:
-        """The device victim search is not ported yet: raising
-        LadderExhausted sends every caller to the host oracle."""
-        raise LadderExhausted(
-            "the device victim search arrives in a later slice of the port"
+        """The device victim search (ops/preemption.py) for a group of
+        failed pods in priority-desc order, ONE device call: the search
+        carries each nomination so later pods see earlier ones
+        (addNominatedPods semantics). Returns (answers, tier) -- one
+        (node_name, victims, num_violating) per pod ("" = no candidate)
+        plus the solver tier that produced them.
+
+        The call runs through the wave ladder's ONE device tier: "cuda"
+        (K3) on the card, where any fault raises; "torch" (K3's plain
+        version) on the CPU, behind its breaker and retries -- there an
+        exhausted tier raises LadderExhausted and the callers take the
+        host oracle.
+
+        ``potentials``: per-pod iterable of candidate NodeInfos (already
+        pruned of UnschedulableAndUnresolvable nodes)."""
+        import numpy as np
+
+        from kubernetes_tpu_torch.ops.host_masks import static_mask_compact
+        from kubernetes_tpu_torch.ops.preemption import (
+            pack_preemption_state,
+            preempt_batch_device,
+            victims_for_node,
+        )
+        from kubernetes_tpu_torch.tensors import pack_pod_batch
+        from kubernetes_tpu_torch.utils import timeline as _tl
+
+        snapshot = self.algorithm.snapshot
+        # the interners inside dims/topology are check-then-insert; the
+        # prewarm thread updates a sibling cache sharing them
+        with self._nt_lock:
+            nt = self._tensor_cache.update(snapshot)
+        key = self._pack_cache_key(snapshot, pdbs)
+        with _tl.span("pack_wait"), self._pack_cv:
+            # a prewarm in flight is about to deliver this exact pack:
+            # wait for it instead of duplicating the packing work
+            deadline = time.monotonic() + 2.0
+            while (
+                self._prewarm_busy
+                and self._pack_key != key
+                and time.monotonic() < deadline
+            ):
+                self._pack_cv.wait(0.05)
+            pack = self._pack if self._pack_key == key else None
+        if pack is None:
+            with _tl.span("pack_build"):
+                pack = pack_preemption_state(snapshot, nt, pdbs)
+            with self._pack_cv:
+                self._pack = pack
+                self._pack_key = key
+        n = len(pack.node_names)
+        b = len(pods)
+
+        batch = pack_pod_batch(pods, nt.dims)
+        mask_rows, mask_index = static_mask_compact(pods, snapshot, nt)
+        nt_rows = np.array(
+            [nt.row(name) for name in pack.node_names], dtype=np.int64
+        )
+        # candidate masks arrive PRE-DEDUPLICATED: the dedup key is
+        # (static-mask row, potential-list identity) -- both known per
+        # pod -- so a wave of identical pods shares one [N] row and the
+        # kernel never sees (nor np.unique's) a [B, N] matrix
+        pot_rows: Dict[int, np.ndarray] = {}
+        cand_cache: Dict[Tuple[int, int], int] = {}
+        content_cache: Dict[bytes, int] = {}
+        cand_rows: List[np.ndarray] = []
+        cand_index = np.zeros(b, dtype=np.int32)
+        zero_row: Optional[int] = None
+        for k, pod in enumerate(pods):
+            if batch.unsatisfiable[k]:
+                # no pod removal adds a resource dimension
+                if zero_row is None:
+                    zero_row = len(cand_rows)
+                    cand_rows.append(np.zeros(n, dtype=bool))
+                cand_index[k] = zero_row
+                continue
+            ckey = (int(mask_index[k]), id(potentials[k]))
+            u = cand_cache.get(ckey)
+            if u is None:
+                pot_key = id(potentials[k])
+                pot_row = pot_rows.get(pot_key)
+                if pot_row is None:
+                    pot_row = np.zeros(n, dtype=bool)
+                    idxs = [
+                        pack.node_index.get(ni.node_name)
+                        for ni in potentials[k]
+                    ]
+                    pot_row[[i for i in idxs if i is not None]] = True
+                    pot_rows[pot_key] = pot_row
+                row = mask_rows[mask_index[k]][nt_rows] & pot_row
+                # content-level dedup on top of the identity key: a
+                # deferred wave combines failures from several batches
+                # whose statuses/potential objects differ by identity
+                # but not content, and one row per class keeps K3's
+                # per-class key build shared
+                content = row.tobytes()
+                u = content_cache.get(content)
+                if u is None:
+                    u = len(cand_rows)
+                    cand_rows.append(row)
+                    content_cache[content] = u
+                cand_cache[ckey] = u
+            cand_index[k] = u
+
+        # pre-existing nominations (in-wave ones ride the kernel carry)
+        pod_uids = {p.metadata.uid for p in pods}
+        nom_pods, nom_prio, nom_node = [], [], []
+        for node_name, noms in (
+            self.queue.all_nominated_pods_by_node() if self.queue else {}
+        ).items():
+            i = pack.node_index.get(node_name)
+            if i is None:
+                continue
+            for p in noms:
+                if p.metadata.uid in pod_uids:
+                    continue
+                nom_pods.append(p)
+                nom_prio.append(p.spec.priority)
+                nom_node.append(i)
+        if nom_pods:
+            nom_req = pack_pod_batch(nom_pods, nt.dims).requests
+        else:
+            nom_req = np.zeros((0, nt.dims.num_dims), dtype=np.int32)
+        wave_prio = np.clip(
+            [p.spec.priority for p in pods], -(1 << 31), (1 << 31) - 2
+        ).astype(np.int32)
+
+        def run():
+            inj = get_injector()
+            if inj is not None:
+                inj.raise_maybe(FaultPoint.PREEMPT_SOLVE)
+            return preempt_batch_device(
+                pack,
+                batch.requests,
+                wave_prio,
+                np.stack(cand_rows),
+                cand_index,
+                nom_req,
+                np.array(nom_prio, dtype=np.int32),
+                np.array(nom_node, dtype=np.int32),
+                device=self.device,
+            )
+
+        tier_name = TIER_CUDA if self.device.type == "cuda" else TIER_TORCH
+        with _tl.span("preempt_device"):
+            tier, (chosen, victims, viol, nviol) = self.ladder.run(
+                [(tier_name, run)], label="preempt_wave"
+            )
+        self.wave_solver_tier = tier
+        out = []
+        for k in range(b):
+            idx = int(chosen[k])
+            if idx < 0:
+                out.append(("", [], 0))
+                continue
+            out.append(
+                (
+                    pack.node_names[idx],
+                    victims_for_node(pack, idx, victims[k], viol[k]),
+                    int(nviol[k]),
+                )
+            )
+        return out, tier
+
+    def _pack_cache_key(self, snapshot, pdbs):
+        return (
+            snapshot.generation,
+            tuple(
+                (
+                    pdb.metadata.namespace, pdb.metadata.name,
+                    pdb.metadata.resource_version,
+                    pdb.status.disruptions_allowed,
+                )
+                for pdb in pdbs
+            ),
         )
 
-    def prewarm_pack_async(self, adims=None) -> None:
-        """No device victim pack to prewarm until the device victim
-        search is ported."""
+    def prewarm_pack_async(self) -> None:
+        """Speculatively build and upload the victim-search pack for the
+        CURRENT snapshot on a helper thread. The BatchScheduler calls
+        this when a dispatched batch's demand exceeds the cluster's free
+        capacity -- preemption is then likely, and the host pack plus
+        its one device upload overlap the failing solve instead of
+        serializing into the wave."""
+        with self._pack_cv:
+            if self._prewarm_busy:
+                return
+            self._prewarm_busy = True
+
+        def run() -> None:
+            try:
+                snapshot = self.algorithm.snapshot
+                pdbs = []
+                if self.client is not None:
+                    try:
+                        pdbs, _ = self.client.list_pdbs()
+                    except Exception:
+                        pass
+                key = self._pack_cache_key(snapshot, pdbs)
+                with self._pack_cv:
+                    if self._pack_key == key:
+                        return
+                from kubernetes_tpu_torch.ops.preemption import (
+                    pack_preemption_state,
+                    upload_pack,
+                )
+                from kubernetes_tpu_torch.tensors import NodeTensorCache
+
+                # own cache INSTANCE (update mutates arrays in place and
+                # the committer may be mid-wave on self._tensor_cache)
+                # but the SHARED dims/topology schema: a fresh
+                # ResourceDims could order resource columns differently
+                # and silently misalign the wave's pod packing against
+                # this pack
+                with self._nt_lock:
+                    nt = NodeTensorCache(
+                        dims=self._tensor_cache.dims,
+                        topology_encoder=self._tensor_cache.topology,
+                    ).update(snapshot)
+                pack = pack_preemption_state(snapshot, nt, pdbs)
+                upload_pack(pack, self.device)
+                with self._pack_cv:
+                    installed_gen = (
+                        self._pack_key[0]
+                        if self._pack_key is not None else -1
+                    )
+                    if self._pack_key != key and installed_gen <= key[0]:
+                        # never clobber a NEWER pack a wave installed
+                        # meanwhile; an older installed pack (or none)
+                        # is always worth replacing -- a wave blocked
+                        # in pack_wait may be waiting for this exact key
+                        self._pack = pack
+                        self._pack_key = key
+            except Exception:
+                logger.exception("preemption pack prewarm failed")
+            finally:
+                with self._pack_cv:
+                    self._prewarm_busy = False
+                    self._pack_cv.notify_all()
+
+        threading.Thread(
+            target=run, name="preempt-prewarm", daemon=True
+        ).start()
 
     def _find_preemption_device(
         self, pod: Pod, potential, pdbs
     ) -> Tuple[Optional[Tuple[str, List[Pod], int]], str]:
         """Single-pod wrapper over the batched device search: returns
-        (answer, tier). Raises LadderExhausted when both device tiers
-        are down; the caller falls to the host oracle."""
+        (answer, tier). Raises LadderExhausted when the CPU's device
+        tier is down; the caller then takes the host oracle."""
         answers, tier = self._device_answers([pod], [potential], pdbs)
         return answers[0], tier
 
@@ -344,8 +648,10 @@ class Preemptor:
                     pod, potential, pdbs
                 )
             except LadderExhausted:
-                # both device tiers down: the host oracle below is the
-                # wave floor (counted as a host preemption)
+                if self.device.type == "cuda":
+                    raise  # the card's victim search never degrades
+                # the CPU's device tier is down: the host oracle below
+                # is the wave floor (counted as a host preemption)
                 logger.warning(
                     "device preemption tiers exhausted for %s; "
                     "falling to the host oracle", pod.key(),
@@ -463,9 +769,12 @@ class Preemptor:
             )
             self.device_preemptions += len(live_pods)
         except LadderExhausted:
-            # both device tiers down (breakers open / faults exhausted
-            # the retries): the wave still completes on the per-pod host
-            # oracle with the nomination fold through the queue
+            if self.device.type == "cuda":
+                raise  # the card's victim search never degrades
+            # the CPU's device tier is down (breaker open / faults
+            # exhausted the retries): the wave still completes on the
+            # per-pod host oracle with the nomination fold through the
+            # queue
             logger.warning(
                 "preemption wave device tiers exhausted; running the "
                 "host-oracle floor for %d pods", len(live_pods),

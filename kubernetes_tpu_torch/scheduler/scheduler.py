@@ -846,7 +846,8 @@ def new_scheduler(
     from kubernetes_tpu_torch.scheduler.eventhandlers import add_all_event_handlers
     from kubernetes_tpu_torch.scheduler.preemption import Preemptor
 
-    sched.preemptor = Preemptor(algorithm, queue, client)
+    # the victim search runs where the solve does: K3 on the card
+    sched.preemptor = Preemptor(algorithm, queue, client, device=device)
     if batch:
         # the wave ladder mirrors the batch solver's robustness config
         # (watchdog/retry/breaker knobs, injectable sleep) with its OWN

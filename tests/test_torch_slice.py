@@ -387,6 +387,329 @@ def test_a_fault_on_the_card_raises_instead_of_solving_on_the_cpu(
         informers.stop()
 
 
+def _preemption_tail(stack, **kw):
+    """Drive the batch loop by hand (no scheduler thread, so the tail is
+    ONE batch and ONE wave): 6 nodes of 4 CPUs filled by 12 low pods of
+    priorities 0 and 10, then a tail of 4 high pods (priorities 100 and
+    50) that must each evict one victim. Returns (final placements, the
+    wave's nominations, the evicted pods, scheduler)."""
+    Server, Cl, Informers, new, mk_node, mk_pod = STACKS[stack]
+    server = Server()
+    client = Cl(server)
+    informers = Informers(server)
+    sched = new(client, informers, batch=True, max_batch=64, **kw)
+    for i in range(6):
+        client.create_node(
+            mk_node(f"n{i}").capacity(cpu="4", memory="8Gi", pods=10).obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    nominations = {}
+    orig = sched.preemptor.preempt_batch
+
+    def recording(prof, items):
+        nominated, uids = orig(prof, items)
+        for (pod, _), node in zip(items, nominated):
+            nominations[pod.metadata.name] = node
+        # let the evictions reach the cache before the retries run (the
+        # wave itself waits at most 0.5 s), so a loaded machine cannot
+        # turn a retry into a second wave in one package and not the other
+        deadline = time.time() + 30
+        while any(sched.cache.has_pod_uid(u) for u in uids or ()):
+            assert time.time() < deadline, "the evictions never landed"
+            time.sleep(0.01)
+        return nominated, uids
+
+    sched.preemptor.preempt_batch = recording
+
+    def settled(names):
+        """The informer holds every listed pod's latest write: a status
+        write the scheduler made (the failure condition and nomination)
+        has reached the queue, so its echo cannot re-add a pod that a
+        later batch is already scheduling."""
+        for name in names:
+            try:
+                cur = client.get_pod("default", name)
+            except KeyError:
+                continue
+            seen = informers.pods().get("default", name)
+            if seen is None or (
+                seen.metadata.resource_version
+                != cur.metadata.resource_version
+            ):
+                return False
+        return True
+
+    def drive(names):
+        # the whole set in the queue first, so it is ONE batch
+        deadline = time.time() + 30
+        while sched.queue.active_count() < len(names):
+            assert time.time() < deadline, "the pods never reached the queue"
+            time.sleep(0.01)
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            while not settled(names):
+                assert time.time() < deadline, "the informer fell behind"
+                time.sleep(0.01)
+            time.sleep(0.01)  # the handler runs just after the store
+            sched.schedule_batch(timeout=0.1)
+            sched.wait_for_inflight_binds()
+            placed = {
+                p.metadata.name: p.spec.node_name
+                for p in client.list_pods()[0]
+            }
+            if all(placed.get(n) for n in names):
+                return
+        raise AssertionError(f"{stack}: not every pod of {names} bound")
+
+    try:
+        low = [f"low{i}" for i in range(12)]
+        client.create_pods_bulk([
+            mk_pod(name).creation_timestamp(float(i)).priority(10 * (i % 2))
+            .container(cpu="2", memory="1Gi").obj()
+            for i, name in enumerate(low)
+        ])
+        drive(low)
+        high = [f"high{i}" for i in range(4)]
+        client.create_pods_bulk([
+            mk_pod(name).creation_timestamp(100.0 + i)
+            .priority(100 if i < 2 else 50)
+            .container(cpu="2", memory="1Gi").obj()
+            for i, name in enumerate(high)
+        ])
+        drive(high)
+        placed = {
+            p.metadata.name: p.spec.node_name for p in client.list_pods()[0]
+        }
+        evicted = sorted(set(low) - set(placed))
+        return placed, nominations, evicted, sched
+    finally:
+        sched.stop()
+        informers.stop()
+
+
+def test_a_high_priority_tail_preempts_like_the_jax_package():
+    """A saturated cluster takes a high-priority tail: the port's wave
+    (the ``torch`` tier, K3's plain version) nominates the same nodes,
+    evicts the same victims and ends in the same placements as the JAX
+    package's device wave, and no pod takes the host oracle."""
+    want_placed, want_nom, want_evicted, _ = _preemption_tail("jax")
+    placed, nom, evicted, sched = _preemption_tail("torch", device="cpu")
+    assert want_nom and all(want_nom.values())
+    assert nom == want_nom
+    assert evicted == want_evicted and len(evicted) == 4
+    assert placed == want_placed
+    # a retry that races its victim's eviction into the cache fails once
+    # more and takes a second (victim-free) wave: counts are lower bounds
+    p = sched.preemptor
+    assert p.waves >= 1 and p.wave_solver_tier == "torch"
+    assert p.device_preemptions >= 4 and p.host_preemptions == 0
+    assert p.ladder.solves_by_tier["torch"] == p.waves
+
+
+def _pdb_never_negative(server):
+    """Replay the full PodDisruptionBudget watch history: every status
+    write must leave disruptionsAllowed >= 0."""
+    w = server.watch("PodDisruptionBudget", since_rv=0)
+    floor = 0
+    for ev in w.pending():
+        if ev.type == "DELETED":
+            continue
+        floor = min(floor, ev.object.status.disruptions_allowed)
+    w.stop()
+    return floor >= 0
+
+
+def _bind_transitions_by_uid(server):
+    """unbound->bound transitions per pod incarnation (uid), replayed
+    from the full watch history."""
+    w = server.watch("Pod", since_rv=0)
+    node = {}
+    transitions = {}
+    for ev in w.pending():
+        pod = ev.object
+        uid = pod.metadata.uid
+        if ev.type == "DELETED":
+            node.pop(uid, None)
+            continue
+        prev = node.get(uid, "")
+        cur = pod.spec.node_name or ""
+        if not prev and cur:
+            transitions[uid] = transitions.get(uid, 0) + 1
+        node[uid] = cur
+    w.stop()
+    return transitions
+
+
+def _wait_named_bound(client, names, deadline_s):
+    deadline = time.time() + deadline_s
+    names = set(names)
+    while time.time() < deadline:
+        pods, _ = client.list_pods()
+        bound = {
+            p.metadata.name for p in pods
+            if p.metadata.name in names and p.spec.node_name
+        }
+        if bound == names:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def test_high_priority_tail_guard():
+    """tests/test_preemption_wave.py's tier-1 guard on the port: 1k
+    low-priority pods saturate the cluster; a 40-pod high-priority tail
+    must ALL bind via the batched wave (the ``torch`` tier), with zero
+    PDB overspend through the port's DisruptionController, no budget
+    denials (ample budget), and the device carry warm across the wave
+    (state_uploads <= 1 after the victims commit)."""
+    from kubernetes_tpu_torch.api.types import (
+        LabelSelector,
+        PodDisruptionBudget,
+    )
+    from kubernetes_tpu_torch.controllers import DisruptionController
+    from kubernetes_tpu_torch.utils import metrics
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=256,
+                          device="cpu")
+    for i in range(50):
+        client.create_node(
+            make_node(f"n{i}").capacity(cpu="20", memory="64Gi", pods=40)
+            .obj()
+        )
+    dc = DisruptionController(client, informers)
+    sched.preemptor.disruption = dc
+    pdb = PodDisruptionBudget(
+        selector=LabelSelector(match_labels={"app": "low"}),
+        max_unavailable=80,
+    )
+    pdb.metadata.name = "tail-budget"
+    pdb.metadata.namespace = "default"
+    client.create_pdb(pdb)
+    informers.start()
+    informers.wait_for_cache_sync()
+    dc.start()
+    sched.queue.run()
+    try:
+        low_names = [f"low-{i}" for i in range(1000)]
+        client.create_pods_bulk([
+            make_pod(nm).container(cpu="1", memory="128Mi")
+            .labels(app="low").priority(0).obj()
+            for nm in low_names
+        ])
+        sched.start()
+        assert _wait_named_bound(client, low_names, 120), (
+            "saturating burst never fully bound"
+        )
+        sched.wait_for_inflight_binds(timeout=60)
+
+        uploads0 = sched.state_uploads
+        denials0 = sched.preemptor.budget_denials
+        blocked0 = metrics.evictions_blocked_by_pdb.value()
+
+        high_names = [f"high-{i}" for i in range(40)]
+        client.create_pods_bulk([
+            make_pod(nm).container(cpu="1", memory="128Mi")
+            .priority(100).obj()
+            for nm in high_names
+        ])
+        assert _wait_named_bound(client, high_names, 120), (
+            "high-priority tail did not fully bind"
+        )
+        sched.wait_for_inflight_binds(timeout=60)
+
+        p = sched.preemptor
+        assert p.waves >= 1 and p.host_preemptions == 0
+        assert p.victims_by_tier.get("torch", 0) >= 40
+        assert sum(p.victims_by_tier.values()) == p.victims_by_tier["torch"]
+        assert p.budget_denials == denials0
+        assert metrics.evictions_blocked_by_pdb.value() == blocked0
+        assert _pdb_never_negative(server)
+        assert sched.state_uploads - uploads0 <= 1, (
+            f"preemption wave forced {sched.state_uploads - uploads0} "
+            "state uploads"
+        )
+        transitions = _bind_transitions_by_uid(server)
+        doubles = {u: c for u, c in transitions.items() if c > 1}
+        assert not doubles, f"double-bound incarnations: {doubles}"
+    finally:
+        sched.stop()
+        dc.stop()
+        informers.stop()
+
+
+def test_a_fault_of_the_card_victim_search_raises(monkeypatch):
+    """With the victim search on the card, a KernelError from K3 (here
+    raised by a stand-in for the wave's device call whose launch is
+    refused) propagates out of the
+    deferred wave: no host oracle answers the wave, no victim is evicted,
+    no nomination is made."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import preemption as preemption_ops
+    from kubernetes_tpu_torch.ops.kernel_build import KernelError
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=32,
+                          device="cpu")
+    for i in range(2):
+        client.create_node(
+            make_node(f"n{i}").capacity(cpu="4", memory="8Gi", pods=10).obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    flush = sched._flush_deferred_preemptions
+    try:
+        low = [f"low{i}" for i in range(4)]
+        client.create_pods_bulk([
+            make_pod(name).container(cpu="2", memory="1Gi").obj()
+            for name in low
+        ])
+        assert sched.schedule_batch(timeout=1.0) == 4
+        sched.wait_for_inflight_binds()
+        # park the high pod's failure without running the wave
+        sched._flush_deferred_preemptions = lambda: None
+        client.create_pod(
+            make_pod("high").priority(100).container(cpu="2", memory="1Gi")
+            .obj()
+        )
+        for _ in range(50):
+            if sched.schedule_batch(timeout=0.2):
+                break
+        assert len(sched._deferred_preempt) == 1
+        sched._flush_deferred_preemptions = flush
+
+        def refused(*_args, **_kwargs):
+            raise KernelError("preempt_solve_kernel launch failed: cudaError 1")
+
+        # the device call of the wave, whose K3 launch is refused
+        monkeypatch.setattr(preemption_ops, "preempt_batch_device", refused)
+        # as if the solver's tensors were on the card
+        sched.device = torch.device("cuda")
+        sched.preemptor.device = torch.device("cuda")
+        with pytest.raises(KernelError, match="launch failed"):
+            sched._flush_deferred_preemptions()
+        p = sched.preemptor
+        assert p.host_preemptions == 0 and p.device_preemptions == 0
+        assert p.waves == 0 and not p.victims_by_tier
+        assert p.ladder.solves_by_tier["cuda"] == 0
+        pods = {pd.metadata.name: pd for pd in client.list_pods()[0]}
+        assert all(name in pods for name in low)  # nothing evicted
+        assert not pods["high"].spec.node_name
+        assert sched.queue.nominated_pods_for_node("n0") == []
+        assert sched.queue.nominated_pods_for_node("n1") == []
+    finally:
+        sched.stop()
+        informers.stop()
+
+
 def test_entry_points_default_to_the_card():
     """No device named and no card visible: the entry point raises
     instead of running on the CPU."""

@@ -8,10 +8,10 @@ line is printed only when every phase passed):
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and
    CUDA versions.
-2. ``build``: builds the greedy-solve (K1), constrained-solve (K2) and
-   victim-search (K3) kernels from kubernetes_tpu_torch/csrc/, one nvcc
-   each, all started together; prints each one's seconds and ptxas's
-   register and spill report.
+2. ``build``: builds the greedy-solve (K1), constrained-solve (K2),
+   victim-search (K3) and shard-candidate (K4) kernels from
+   kubernetes_tpu_torch/csrc/, one nvcc each, all started together;
+   prints each one's seconds and ptxas's register and spill report.
 3. ``kernel_vs_twin``: K1 against its plain PyTorch version on the card,
    on seeded inputs at the burst's full shape (B=4,096 pods, N=5,632 node
    rows, R=4, U=8 mask rows) and at R=6 with scalar dims, with all-zero
@@ -41,6 +41,17 @@ line is printed only when every phase passed):
    PDBs, some at zero budget; (d) V=48 with R=6 (scalar dims), past the
    TPU kernel's 32-victim cap. K3 is timed with CUDA events after a
    warmup launch, the plain version with the host clock.
+4c. ``shard_kernel_vs_twin``: K4 against its plain PyTorch version on the
+   card, 256 pod steps per case, tolerance zero on (score, shard-local
+   index). Cases: (a) the mesh burst's shard shape (5,632 seeded rows
+   over 4 shards of 1,408, R=4, U=8, invalid rows); (b) R=6 with scalar
+   dims and all-zero pods; (c) pods with no feasible row, which must
+   give (-inf, 0); (d) a ragged split, 5,000 rows over 3 shards. K4 is
+   timed per launch (all shards of a pod step) with CUDA events after a
+   warmup launch, twice: queued behind a sleeping kernel (``ms``, the
+   kernel's own time) and paced by the host's enqueueing as the mesh
+   solve paces it (``host_paced_ms``); the plain version with the host
+   clock.
 5. ``burst``: the main path end to end through the port's entry points,
    as bench.py builds it: APIServer, Client, InformerFactory,
    new_scheduler(batch=True, max_batch=4096) on the card, 5,000 nodes
@@ -78,7 +89,22 @@ line is printed only when every phase passed):
    its recorded pack and pods through the plain version. Prints pods/s,
    p50/p99 create-to-bind, the waves and their sizes and seconds, K3's
    launches, the victims, the pack seconds and the stage seconds.
-8. ``kernels``: every ported kernel with its launches on the main path,
+8. ``mesh_burst``: the ``burst`` phase again on the node-sharded tier,
+   ``new_scheduler(batch=True, max_batch=4096,
+   mesh=NodeMesh(["cuda:0"] * 4))``: four shards of 1,408 rows on the
+   one card. Asserts, beside the ``burst`` checks and the host-greedy
+   replay, that K4 launched at least once per measured pod and K1 never,
+   at most one full state upload and no carry divergence, and no K4
+   build during the burst. Prints K4's launches and the shard sizes too.
+9. ``mesh_mixed``: ``__graft_entry__.dryrun_multichip`` parts 1 and 1b on
+   the same mesh: 512 nodes with plain, hard-spread, anti-affinity,
+   preferred-affinity and gang pods (68 bound; the constrained batches
+   run K2 on the gathered carry; every solve equals a replay on a CPU
+   mesh; plain pods that share a batch with constrained ones ride K2),
+   then a cluster
+   saturated by plain priority-0 pods that all bind through K4, whose
+   high-priority burst preempts through K3 on the mesh's first device.
+10. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -277,6 +303,147 @@ def kernel_vs_twin(gk, asg_mod, cfg_cls):
         if not all(equal):
             raise AssertionError(f"kernel disagrees with its twin on {name}")
         if name == "burst_r4":
+            timing = rec
+    return timing, max_err
+
+
+# -- phase 4c: the shard-candidate kernel vs its twin -------------------------
+
+MESH_SHARDS = 4
+SHARD_PODS = 256  # pod steps checked per case
+
+
+def shard_problem(seed, n, r, p, infeasible=False):
+    """A seeded node state split over p shards of a p-device mesh on the
+    card (ragged when p does not divide n), and a pod batch; with
+    ``infeasible`` every pod asks for more than any node holds or points
+    at the all-False mask row."""
+    from kubernetes_tpu_torch.ops.mesh import NodeMesh
+
+    host = random_problem(seed, n=n, b=SHARD_PODS, r=r, u=BURST_SHAPE["u"])
+    alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, _ = host
+    if infeasible:
+        pod_req = pod_req.copy()
+        midx = midx.copy()
+        pod_req[0::2, 0] = 1 << 30  # no node has that much CPU
+        midx[1::2] = rows.shape[0] - 1  # the all-False row
+    mesh = NodeMesh(["cuda:0"] * p)
+    bounds = mesh.bounds(n)
+    dev = torch.device("cuda:0")
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    shards = [
+        tuple(put(x) for x in (
+            alloc[lo:hi], requested[lo:hi], nzr[lo:hi], valid[lo:hi],
+            rows[:, lo:hi],
+        ))
+        for lo, hi in bounds
+    ]
+    pods = (put(pod_req), put(pod_nzr), put(midx.astype(np.int32)))
+    return host, bounds, shards, pods
+
+
+def shard_bound(host, bounds, t):
+    """The least time one K4 launch (pod t over every shard) could take:
+    bytes each input read once (alloc, req, nzr, valid and the pod's one
+    mask row, the pod's rows) and each output written once, against the
+    operations of the rows the pod tests and scores (fit_ops, score_ops
+    counted from the kernel body, as for K1)."""
+    alloc, requested, _, valid, pod_req, _, rows, midx, _ = host
+    n, r = alloc.shape
+    p = len(bounds)
+    n_bytes = 4 * (2 * n * r + 2 * n) + 2 * n + 4 * (r + 2 + 1) + 8 * p
+    m = min(max(int(midx[t]), 0), rows.shape[0] - 1)
+    checked = valid & rows[m]
+    s = pod_req[t]
+    ok = s[None, :] <= (alloc.astype(np.int64) - requested)
+    ok[:, (np.arange(r) >= 4) & (s == 0)] = True
+    others = np.arange(r) != 3
+    fits = ok[:, 3] if not (s[others] > 0).any() else ok.all(axis=1)
+    ops = int(checked.sum()) * fit_ops(r) + int((checked & fits).sum()) * (
+        score_ops(1, 1, 0)
+    )
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def shard_kernel_vs_twin(sk):
+    cases = [
+        ("burst_shard_r4", 11, BURST_SHAPE["n"], 4, MESH_SHARDS, False),
+        ("scalar_r6", 12, BURST_SHAPE["n"], 6, MESH_SHARDS, False),
+        ("infeasible", 13, BURST_SHAPE["n"], 4, MESH_SHARDS, True),
+        ("ragged_5000_over_3", 14, N_NODES, 4, 3, False),
+    ]
+    timing = None
+    max_err = 0.0
+    for name, seed, n, r, p, infeasible in cases:
+        host, bounds, shards, pods = shard_problem(seed, n, r, p, infeasible)
+        cols = [list(x) for x in zip(*shards)]
+        cands = sk.ShardCandidates(*cols, *pods)
+        torch.cuda.synchronize()
+        for t in range(SHARD_PODS):
+            cands.step(t)
+        torch.cuda.synchronize()
+        k_score, k_index = cands.score.clone(), cands.index.clone()
+        t0 = time.perf_counter()
+        plain = [
+            [sk.shard_candidate_plain(*sh, pods[0][t], pods[1][t], pods[2][t])
+             for sh in shards]
+            for t in range(SHARD_PODS)
+        ]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / SHARD_PODS
+        p_score = torch.stack([torch.stack([b for b, _ in row]) for row in plain])
+        p_index = torch.stack([torch.stack([i for _, i in row]) for row in plain])
+        equal = [bool(torch.equal(k_score, p_score)),
+                 bool(torch.equal(k_index, p_index))]
+        finite = torch.isfinite(p_score) & torch.isfinite(k_score)
+        err = max(
+            float((k_index.long() - p_index.long()).abs().max()),
+            float((k_score - p_score)[finite].abs().max()) if finite.any() else 0.0,
+        )
+        max_err = max(max_err, err)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # paced by the host: each launch is enqueued as the mesh solve
+        # enqueues it, and a launch this short may wait on the next one
+        start.record()
+        for t in range(SHARD_PODS):
+            cands.step(t)
+        end.record()
+        torch.cuda.synchronize()
+        host_paced_ms = start.elapsed_time(end) / SHARD_PODS
+        # the kernel's own time: the launches queue up behind a sleeping
+        # kernel first (~0.1 s, far longer than enqueueing them), so the
+        # events bracket them back to back on the card
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for t in range(SHARD_PODS):
+            cands.step(t)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / SHARD_PODS
+        none_feasible = int((~torch.isfinite(p_score)).all(dim=1).sum())
+        bound_ms, bound_by = shard_bound(host, bounds, 0)
+        rec = dict(
+            case=name, n=n, r=r, shards=p, n_loc=[hi - lo for lo, hi in bounds],
+            pods=SHARD_PODS, equal=equal, max_abs_err=err,
+            pods_with_no_feasible_row=none_feasible,
+            empty_candidates_are_minus_inf_0=bool(
+                (k_index[~torch.isfinite(k_score)] == 0).all()
+            ),
+            ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        emit("shard_kernel_vs_twin", **rec)
+        if not all(equal) or not rec["empty_candidates_are_minus_inf_0"]:
+            raise AssertionError(f"K4 disagrees with its twin on {name}")
+        if infeasible and none_feasible == 0:
+            raise AssertionError("the infeasible case has a feasible pod")
+        if name == "burst_shard_r4":
             timing = rec
     return timing, max_err
 
@@ -665,12 +832,55 @@ def row_pod(make_pod, row, name, labels, constrained):
     return w.obj()
 
 
+def solve_recorders(orig_dispatch, orig_solve, dispatched, seen, calls):
+    """Wrappers of a scheduler's ``_dispatch_solve`` and of the batch
+    module's ``solve_packed`` that record every dispatch and every solve
+    it made (pieces, the device state handed in, the answer)."""
+    from kubernetes_tpu_torch.ops.mesh import ShardedRows
+
+    def recording_dispatch(*args, **kwargs):
+        p = orig_dispatch(*args, **kwargs)
+        if p is not None and id(p) not in seen:
+            seen.add(id(p))
+            dispatched.append(p)
+        return p
+
+    def copy(t):
+        if t is None:
+            return None
+        if isinstance(t, ShardedRows):
+            return t.map(lambda s: s.clone())
+        return t.clone()
+
+    def recording_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw):
+        # the host arrays as they are now: a cold upload's node state is
+        # the tensor cache's own, which later batches update in place
+        pieces = [
+            (name, a.copy() if isinstance(a, np.ndarray) else a)
+            for name, a in pieces
+        ]
+        out = orig_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw)
+        # a copy of the state handed in, taken in stream order: a later
+        # solve's row patches may update the resident carry in place
+        handed = tuple(copy(t) for t in (alloc_in, valid_in, req_in, nzr_in))
+        calls.append(dict(
+            pieces=pieces, state=handed,
+            out=out, mode=kw.get("mode", "greedy"),
+            config=kw.get("config"), compress=kw.get("compress", False),
+            mesh=kw.get("mesh"),
+        ))
+        return out
+
+    return recording_dispatch, recording_solve
+
+
 def replay_solves(calls, dispatched):
     """Replay each recorded solve on the CPU through the plain versions,
     from its pieces and the device state it was handed, in order; check
     each against the card's answer and return the placements the replay
     implies: pod name -> node name."""
     from kubernetes_tpu_torch.ops.assignment import solve_packed
+    from kubernetes_tpu_torch.ops.mesh import NodeMesh, ShardedRows
     from kubernetes_tpu_torch.scheduler.batch import _to_host
 
     by_out = {id(c["out"][0]): c for c in calls}
@@ -679,10 +889,19 @@ def replay_solves(calls, dispatched):
         call = by_out.get(id(p["assignments_dev"]))
         if call is None:
             raise AssertionError("a dispatch has no recorded solve")
-        handed = [None if t is None else t.cpu() for t in call["state"]]
+        mesh = call.get("mesh")
+        # a mesh solve replays on a CPU mesh of as many shards
+        cpu_mesh = None if mesh is None else NodeMesh(["cpu"] * mesh.size)
+        handed = [
+            None if t is None
+            else ShardedRows(cpu_mesh, [s.cpu() for s in t.shards])
+            if isinstance(t, ShardedRows) else t.cpu()
+            for t in call["state"]
+        ]
         asg, _, _, _, _ = solve_packed(
             call["pieces"], *handed, config=call["config"],
             mode=call["mode"], compress=call["compress"], device="cpu",
+            mesh=cpu_mesh,
         )
         asg = asg.numpy()
         dev_asg = _to_host(p["assignments_dev"])
@@ -787,29 +1006,9 @@ def constrained_row(row, ck):
     dispatched, seen, calls = [], set(), []
     orig_dispatch = sched._dispatch_solve
     orig_solve = batch_mod.solve_packed
-
-    def recording_dispatch(*args, **kwargs):
-        p = orig_dispatch(*args, **kwargs)
-        if p is not None and id(p) not in seen:
-            seen.add(id(p))
-            dispatched.append(p)
-        return p
-
-    def recording_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw):
-        out = orig_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw)
-        # a copy of the state handed in, taken in stream order: a later
-        # solve's row patches may update the resident carry in place
-        handed = tuple(
-            None if t is None else t.clone()
-            for t in (alloc_in, valid_in, req_in, nzr_in)
-        )
-        calls.append(dict(
-            pieces=pieces, state=handed,
-            out=out, mode=kw.get("mode", "greedy"),
-            config=kw.get("config"), compress=kw.get("compress", False),
-        ))
-        return out
-
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
     sched._dispatch_solve = recording_dispatch
     batch_mod.solve_packed = recording_solve
     tiers0 = dict(sched.ladder.solves_by_tier)
@@ -1320,6 +1519,193 @@ def preemption_burst(pk, gk):
     return rec
 
 
+# -- phase 8: the mixed workload on the mesh ----------------------------------
+
+def pump(sched, client, want, prefix="", seconds=60.0):
+    """Drive schedule_batch until ``want`` pods whose names start with
+    ``prefix`` are bound (preempted pods re-enter through backoff)."""
+    deadline = time.time() + seconds
+    bound = 0
+    while time.time() < deadline:
+        sched.schedule_batch(timeout=0.5)
+        pods, _ = client.list_pods()
+        bound = sum(1 for p in pods
+                    if p.spec.node_name and p.metadata.name.startswith(prefix))
+        if bound >= want:
+            break
+    return bound
+
+
+def mesh_mixed(mesh, gk, ck, pk, sk):
+    """__graft_entry__.dryrun_multichip parts 1 and 1b (:87-220) on a mesh
+    on the card, through the entry points: (1) 128 nodes per shard with
+    zone labels, 48 plain pods, 8 hard-spread, 4 anti-affinity, 4
+    preferred-affinity and a 4-pod gang (68 pods, max_batch 64); every
+    solve is replayed on a CPU mesh of as many shards; (1b) 16 nodes per
+    shard filled with priority-0 pods, which must all bind through K4,
+    then a high-priority burst that must preempt through K3 on the
+    mesh's first device."""
+    from kubernetes_tpu_torch.api.types import (
+        ObjectMeta, POD_GROUP_LABEL, PodGroup,
+    )
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    p_dev = mesh.size
+    t0 = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=64,
+                          mesh=mesh, async_binding=False)
+    n_nodes = 128 * p_dev
+    for i in range(n_nodes):
+        client.create_node(
+            make_node(f"n{i}").labels(zone=f"z{i % 4}")
+            .capacity(cpu="16", memory="32Gi", pods=40).obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch, orig_solve = sched._dispatch_solve, batch_mod.solve_packed
+    sched._dispatch_solve, batch_mod.solve_packed = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+    launches0 = dict(k1=gk.launches, k2=ck.launches, k4=sk.launches)
+    try:
+        for i in range(48):
+            client.create_pod(
+                make_pod(f"p{i}").container(cpu="250m", memory="256Mi").obj())
+        for i in range(8):
+            client.create_pod(
+                make_pod(f"sp{i}").labels(app="web")
+                .container(cpu="100m", memory="128Mi")
+                .spread_constraint(1, "zone", match_labels={"app": "web"}).obj())
+        for i in range(4):
+            client.create_pod(
+                make_pod(f"db{i}").labels(app="db")
+                .container(cpu="100m", memory="128Mi")
+                .pod_affinity("zone", {"app": "db"}, anti=True).obj())
+        for i in range(4):
+            client.create_pod(
+                make_pod(f"pref{i}").labels(app="web")
+                .container(cpu="100m", memory="128Mi")
+                .preferred_pod_affinity("zone", {"app": "db"}, weight=5).obj())
+        client.create_pod_group(PodGroup(
+            metadata=ObjectMeta(name="gang", namespace="default"), min_member=4,
+        ))
+        for i in range(4):
+            gp = make_pod(f"gang{i}").container(cpu="100m", memory="128Mi").obj()
+            gp.metadata.labels[POD_GROUP_LABEL] = "gang"
+            client.create_pod(gp)
+        time.sleep(0.2)
+        bound = pump(sched, client, 68, seconds=120)
+    finally:
+        sched._dispatch_solve, batch_mod.solve_packed = orig_dispatch, orig_solve
+    pods, _ = client.list_pods()
+    placed = {p.metadata.name: p.spec.node_name for p in pods}
+    tiers = dict(sched.ladder.solves_by_tier)
+    part1_launches = dict(
+        k1=gk.launches - launches0["k1"], k2=ck.launches - launches0["k2"],
+        k4=sk.launches - launches0["k4"],
+    )
+    fallback1 = sched.pods_fallback
+    sched.stop()
+    informers.stop()
+    gang = sum(1 for n, v in placed.items() if v and n.startswith("gang"))
+    if bound != 68 or gang != 4 or fallback1:
+        raise AssertionError(
+            f"mesh_mixed part 1: {bound}/68 bound, gang {gang}/4, "
+            f"{fallback1} fallback pods"
+        )
+    modes = [c["mode"] for c in calls]
+    on_card = mesh.first.type == "cuda"  # the CPU is for rehearsal
+    tier = "cuda" if on_card else "torch"
+    if "constrained" not in modes or (on_card and part1_launches["k2"] <= 0):
+        raise AssertionError(f"no constrained solve launched K2: {modes}")
+    if set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"mesh_mixed solved off the {tier} tier: {tiers}")
+    if part1_launches["k1"]:
+        raise AssertionError("K1 launched on the mesh")
+    t_replay = time.perf_counter()
+    want = replay_solves(calls, dispatched)
+    replay_s = time.perf_counter() - t_replay
+    differ = [n for n, v in want.items() if placed.get(n) != v]
+    if differ:
+        raise AssertionError(f"mesh placements differ from the replay: {differ[:3]}")
+    part1_s = time.perf_counter() - t0
+
+    # 1b: preemption on the mesh
+    t1 = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=64,
+                          mesh=mesh, async_binding=False)
+    if sched.preemptor.device != mesh.first:
+        raise AssertionError(f"the preemptor runs on {sched.preemptor.device}")
+    n_small = 16 * p_dev
+    for i in range(n_small):
+        client.create_node(
+            make_node(f"pn{i}").capacity(cpu="8", memory="16Gi", pods=10).obj())
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    for i in range(n_small * 2):
+        client.create_pod(
+            make_pod(f"fill{i}").container(cpu="3500m", memory="2Gi")
+            .priority(0).obj())
+    time.sleep(0.2)
+    k4_before = sk.launches
+    fill_bound = pump(sched, client, n_small * 2, prefix="fill", seconds=60)
+    k4_fill = sk.launches - k4_before
+    if fill_bound != n_small * 2 or (on_card and k4_fill <= 0):
+        raise AssertionError(
+            f"mesh fill bound {fill_bound}/{n_small * 2} with {k4_fill} K4 "
+            f"launches"
+        )
+    k3_before = pk.launches
+    hi = [make_pod(f"hi{i}").container(cpu="4", memory="1Gi").priority(100).obj()
+          for i in range(2 * p_dev)]
+    for hp in hi:
+        client.create_pod(hp)
+    time.sleep(0.2)
+    hi_bound = pump(sched, client, len(hi), prefix="hi", seconds=60)
+    k3 = pk.launches - k3_before
+    preemptions = sched.preemptor.device_preemptions
+    host_preemptions = sched.preemptor.host_preemptions
+    tiers_b = dict(sched.ladder.solves_by_tier)
+    sched.stop()
+    informers.stop()
+    if (hi_bound != len(hi) or preemptions <= 0 or (on_card and k3 <= 0)
+            or host_preemptions):
+        raise AssertionError(
+            f"mesh preemption bound {hi_bound}/{len(hi)} with {preemptions} "
+            f"device preemptions, {k3} K3 launches, {host_preemptions} on "
+            f"the host"
+        )
+    rec = dict(
+        mesh=[str(d) for d in mesh.devices], nodes=n_nodes, bound=bound,
+        gang_bound=gang, solves=len(calls), modes=modes,
+        batch_sizes=[p["b"] for p in dispatched], launches=part1_launches,
+        solves_by_tier=tiers, replay_equal=True, replay_seconds=replay_s,
+        part1_seconds=part1_s, preempt_nodes=n_small, fill_bound=fill_bound,
+        fill_shard_kernel_launches=k4_fill, hi_bound=hi_bound,
+        device_preemptions=preemptions, preempt_kernel_launches=k3,
+        preempt_solves_by_tier=tiers_b,
+        part1b_seconds=time.perf_counter() - t1,
+    )
+    emit("mesh_mixed", **rec)
+    return rec
+
+
 # -- phase 5: the burst -------------------------------------------------------
 
 class BindWatcher:
@@ -1370,7 +1756,11 @@ class BindWatcher:
         self._thread.join(timeout=2)
 
 
-def burst(gk, device=None):
+def burst(gk, device=None, mesh=None, sk=None):
+    """SchedulingBasic through the entry points (the ``burst`` phase); with
+    ``mesh`` (a NodeMesh) and ``sk`` (the K4 module) the ``mesh_burst``
+    phase: the same burst on the node-sharded tier, where every measured
+    pod step launches K4 and K1 never launches."""
     from kubernetes_tpu_torch.apiserver.server import APIServer
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.informer import InformerFactory
@@ -1385,10 +1775,14 @@ def burst(gk, device=None):
     client = Client(server)
     informers = InformerFactory(server)
     sched = new_scheduler(
-        client, informers, batch=True, max_batch=MAX_BATCH, device=device
+        client, informers, batch=True, max_batch=MAX_BATCH, device=device,
+        mesh=mesh,
     )
-    tier = "cuda" if device is None else "torch"  # the CPU is for rehearsal
-    if sched.device.type != ("cuda" if device is None else device):
+    want_dev = mesh.first.type if mesh is not None else (
+        "cuda" if device is None else device
+    )
+    tier = "cuda" if want_dev == "cuda" else "torch"  # the CPU is for rehearsal
+    if sched.device.type != want_dev:
         raise AssertionError(f"the scheduler solves on {sched.device}")
     for i in range(N_NODES):
         client.create_node(
@@ -1460,7 +1854,10 @@ def burst(gk, device=None):
     names = [p.metadata.name for p in burst_pods]
     watch = BindWatcher(server, names)
     create_times = {}
-    gk.launches = 0  # the count of THIS run of the main path
+    gk.launches = 0  # the counts of THIS run of the main path
+    if sk is not None:
+        sk.launches = 0
+        k4_builds = sk.builds
     start = time.perf_counter()
     for lo in range(0, N_PODS, 256):
         chunk = burst_pods[lo:lo + 256]
@@ -1471,6 +1868,7 @@ def burst(gk, device=None):
     completed = watch.wait(600)
     elapsed = time.perf_counter() - start
     launches = gk.launches
+    k4_launches = sk.launches if sk is not None else 0
     sched.wait_for_inflight_binds(timeout=60)
     watch.stop()
     sched._dispatch_solve = orig_dispatch
@@ -1509,12 +1907,27 @@ def burst(gk, device=None):
             raise AssertionError(f"node {node} over capacity: {w} + {b} pods")
     if set(k for k, v in tiers.items() if v) != {tier}:
         raise AssertionError(f"burst batches off the {tier} tier: {tiers}")
-    if tier == "cuda" and launches <= 0:
+    if mesh is None and tier == "cuda" and launches <= 0:
         raise AssertionError("the burst never launched the greedy kernel")
     if any(v for k, v in moved.items() if k != "carry_divergences"):
         raise AssertionError(f"a fallback counter moved: {moved}")
     if any(p["tier"] != tier for p in dispatched):
         raise AssertionError("a burst dispatch was solved off the card")
+    if mesh is not None:
+        if tier == "cuda" and (k4_launches < N_PODS or launches != 0):
+            raise AssertionError(
+                f"the mesh burst launched K4 {k4_launches} times for "
+                f"{N_PODS} pods and K1 {launches} times"
+            )
+        if sched.mesh_solver_tier != tier:
+            raise AssertionError(f"the mesh solved on {sched.mesh_solver_tier!r}")
+        if sched.state_uploads > 1 or moved["carry_divergences"]:
+            raise AssertionError(
+                f"{sched.state_uploads} full uploads and "
+                f"{moved['carry_divergences']} divergences on the mesh"
+            )
+        if sk.builds != k4_builds:
+            raise AssertionError("K4 was built again during the burst")
 
     # host replay: the burst's batches in solve order through the numpy
     # host greedy, from the post-warmup state
@@ -1558,7 +1971,16 @@ def burst(gk, device=None):
         stage_seconds=stages, replay_equal=True, replay_seconds=replay_s,
         setup_seconds=setup_s,
     )
-    emit("burst", **rec)
+    if mesh is None:
+        emit("burst", **rec)
+        return rec
+    rec.update(
+        mesh=[str(d) for d in mesh.devices],
+        n_loc=[hi - lo for lo, hi in mesh.bounds(int(alloc0.shape[0]))],
+        shard_kernel_launches=k4_launches, state_uploads=sched.state_uploads,
+        shard_kernel_builds=sk.builds,
+    )
+    emit("mesh_burst", **rec)
     return rec
 
 
@@ -1589,6 +2011,8 @@ def main():
     from kubernetes_tpu_torch.ops import greedy_kernel as gk
     from kubernetes_tpu_torch.ops import preempt_kernel as pk
     from kubernetes_tpu_torch.ops import preemption as pre_mod
+    from kubernetes_tpu_torch.ops import shard_kernel as sk
+    from kubernetes_tpu_torch.ops.mesh import NodeMesh
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1597,14 +2021,18 @@ def main():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda,
     )
-    build_s = build_kernels([gk, ck, pk])
+    build_s = build_kernels([gk, ck, pk, sk])
 
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
     c_timing, c_max_err = constrained_kernel_vs_twin(ck, asg_mod)
     p_timing, p_max_err = preempt_kernel_vs_twin(pk, pre_mod)
+    s_timing, s_max_err = shard_kernel_vs_twin(sk)
     rec = burst(gk)
     rows = constrained_bursts(ck)
     pre = preemption_burst(pk, gk)
+    mesh = NodeMesh(["cuda:0"] * MESH_SHARDS)
+    m_rec = burst(gk, mesh=mesh, sk=sk)
+    mesh_mixed(mesh, gk, ck, pk, sk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -1641,6 +2069,18 @@ def main():
         bound_ms=p_timing["bound_ms"],
         bound_by=p_timing["bound_by"],
         library_ms=None,  # no single PyTorch call computes this search
+    ), dict(
+        name="shard_candidate",
+        route="cuda",
+        source="kubernetes_tpu_torch/csrc/shard_candidate.cu",
+        replaces="kubernetes_tpu/ops/pallas_solver.py:193",
+        launches=m_rec["shard_kernel_launches"],
+        max_abs_err=s_max_err,
+        ms=s_timing["ms"],
+        plain_ms=s_timing["plain_ms"],
+        bound_ms=s_timing["bound_ms"],
+        bound_by=s_timing["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this candidate
     )]
     emit("timing", build_seconds=build_s,
          total_seconds=time.perf_counter() - t_start)

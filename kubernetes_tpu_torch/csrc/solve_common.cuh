@@ -1,6 +1,7 @@
-// Device helpers shared by the greedy (K1), constrained (K2) and
-// preemption (K3) kernels: the fit test, the resource score, the
-// (score, index) argmax step and a block-wide minimum of a struct key.
+// Device helpers shared by the greedy (K1), constrained (K2), preemption
+// (K3) and shard-candidate (K4) kernels: the fit test, the resource
+// score, the (score, index) argmax step and a block-wide minimum of a
+// struct key.
 // Each matches its plain PyTorch version in ops/assignment.py and
 // ops/scores.py op for op: every float op is an explicit round-to-nearest
 // intrinsic, so nvcc never contracts a multiply-add into an FMA (the
@@ -104,10 +105,16 @@ __device__ __forceinline__ void better(float& s, int& i, float os, int oi) {
   }
 }
 
+struct ScoreIndex {
+  float score;
+  int index;
+};
+
 // block-wide (score, index) argmax; every thread passes its own best and
-// gets the block's back. s_score/s_index are kWarps-long shared arrays.
-// Contains __syncthreads(): call from every thread of the block.
-__device__ __forceinline__ int block_argmax(
+// gets the block's (score, index) back. s_score/s_index are kWarps-long
+// shared arrays. Contains __syncthreads(): call from every thread of the
+// block.
+__device__ __forceinline__ ScoreIndex block_best(
     float best, int best_i, float* s_score, int* s_index) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -128,7 +135,13 @@ __device__ __forceinline__ int block_argmax(
     const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
     better(best, best_i, os, oi);
   }
-  return __shfl_sync(0xffffffffu, best_i, 0);
+  return {__shfl_sync(0xffffffffu, best, 0), __shfl_sync(0xffffffffu, best_i, 0)};
+}
+
+// block_best's index alone
+__device__ __forceinline__ int block_argmax(
+    float best, int best_i, float* s_score, int* s_index) {
+  return block_best(best, best_i, s_score, s_index).index;
 }
 
 // __shfl_down_sync / __shfl_sync of a trivially copyable struct, word by word

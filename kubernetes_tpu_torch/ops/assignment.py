@@ -26,6 +26,12 @@ batch with constraint or score-dynamic families, the constrained solve
 their plain PyTorch versions: a Python loop over pods, each step
 parallel over nodes, taken only for tensors on the CPU.
 
+On a node-sharded mesh (ops/mesh.py ``NodeMesh``; ``solve_packed(...,
+mesh=)``) a greedy batch instead steps through its pods here
+(``_mesh_greedy``), each step one launch of the shard-candidate kernel K4
+(ops/shard_kernel.py, csrc/shard_candidate.cu) per device plus the
+best-of-shards combine and the winner's bump in torch.
+
 All state, indices and outputs are int32 (torch defaults ``arange`` and
 integer sums to int64, so every such call names its dtype).
 """
@@ -39,6 +45,11 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.ops.mesh import (
+    NodeMesh,
+    ShardedRows,
+    shard_local_row_set,
+)
 from kubernetes_tpu_torch.ops.scores import (
     balanced_allocation_score,
     least_allocated_score,
@@ -726,18 +737,277 @@ def _packed_solve_tail(
 def kernel_build_counts() -> dict:
     """Kernel builds per family in this process, keyed by a stable name:
     the runtime cache watchdog (scheduler/batch.py) diffs this per batch,
-    so a build after warmup shows up as a mid-run recompile."""
+    so a build after warmup shows up as a mid-run recompile. The
+    counterpart of the JAX package's ``jit_cache_sizes(mesh)``: the mesh
+    tier's one kernel is K4 (``shard_kernel``)."""
     from kubernetes_tpu_torch.ops import (
         constrained_kernel,
         greedy_kernel,
         preempt_kernel,
+        shard_kernel,
     )
 
     return {
         "greedy_kernel": greedy_kernel.builds,
         "constrained_kernel": constrained_kernel.builds,
         "preempt_kernel": preempt_kernel.builds,
+        "shard_kernel": shard_kernel.builds,
     }
+
+
+#: "no index" of the best-of-shards combine's minimum (JAX's ``big``)
+_NO_INDEX = 1 << 30
+
+
+def _mesh_greedy(
+    mesh: NodeMesh,
+    alloc,  # [P] shard tensors [n_k, R] int32
+    req,  # [P] [n_k, R] int32
+    nzr,  # [P] [n_k, 2] int32
+    valid,  # [P] [n_k] bool
+    rows,  # [P] [U, n_k] bool: each shard's own mask columns
+    pods,  # per mesh.groups() entry: (pod_req [B, R], pod_nzr [B, 2],
+    #        midx [B]) int32 on that group's device
+    active: np.ndarray,  # [B] bool, host
+    config: GreedyConfig,
+):
+    """The mesh tier's greedy solve (``_mesh_shard_solver`` of the JAX
+    package): per ACTIVE pod step, K4 on every shard (one launch per
+    device), then the best-of-shards combine -- max score, then min
+    global index among the shards holding it (JAX's pmax/pmin) -- then
+    the winner's bump on its own shard. The combine and the bump are
+    plain torch ops, so the step loop never waits on the host. Inactive
+    pods are skipped (they place nowhere and change nothing, as the
+    ``active`` gate of the JAX combine makes them). Returns
+    (assignment [B] int32 on the first device, req' ShardedRows, nzr'
+    ShardedRows); the inputs are never written."""
+    from kubernetes_tpu_torch.ops.shard_kernel import ShardCandidates
+
+    first = mesh.first
+    n = sum(int(a.shape[0]) for a in alloc)
+    bounds = mesh.bounds(n)
+    b = int(active.shape[0])
+    groups = mesh.groups()
+    # the combine's candidates on the first device, one column per shard
+    # in group order: the first group (the first device's shards) writes
+    # its columns from K4 directly, every other group's are copied in
+    score = torch.empty((b, mesh.size), dtype=torch.float32, device=first)
+    index = torch.empty((b, mesh.size), dtype=torch.int32, device=first)
+    offs = torch.tensor(
+        [bounds[k][0] for _, ks in groups for k in ks],
+        dtype=torch.int64, device=first,
+    )
+    work, col = [], 0
+    for g, ((dev, ks), (pod_req, pod_nzr, midx)) in enumerate(
+        zip(groups, pods)
+    ):
+        r = pod_req.shape[1]
+        # the device's working carry: its shards' rows stacked in shard
+        # order plus one scratch row that takes a bump placed elsewhere
+        # (cat copies, so the resident carry is never written)
+        rq = torch.cat([req[k].to(torch.int32) for k in ks]
+                       + [torch.zeros((1, r), dtype=torch.int32, device=dev)])
+        nz = torch.cat([nzr[k].to(torch.int32) for k in ks]
+                       + [torch.zeros((1, 2), dtype=torch.int32, device=dev)])
+        views, off = [], 0
+        for k in ks:
+            m = bounds[k][1] - bounds[k][0]
+            views.append((off, off + m))
+            off += m
+        out = dict(score=score, index=index, col=0) if g == 0 else {}
+        cands = ShardCandidates(
+            [alloc[k] for k in ks], [rq[lo:hi] for lo, hi in views],
+            [nz[lo:hi] for lo, hi in views], [valid[k] for k in ks],
+            [rows[k] for k in ks], pod_req, pod_nzr, midx, config, **out,
+        )
+        work.append((dev, ks, rq, nz, views, cands, col,
+                     mesh.row_map(n, dev, ks), pod_req, pod_nzr))
+        col += len(ks)
+    # chosen global row per step; n (the row maps' "no node") when the
+    # pod placed nowhere or was skipped
+    chosen = torch.full((b,), n, dtype=torch.int64, device=first)
+    for t in np.flatnonzero(active).tolist():
+        for w in work:
+            w[5].step(t)
+        for _, ks, _, _, _, cands, c0, _, _, _ in work[1:]:
+            # another device's candidates meet the first's
+            score[t, c0:c0 + len(ks)].copy_(cands.score[t])
+            index[t, c0:c0 + len(ks)].copy_(cands.index[t])
+        s, gidx = score[t], index[t] + offs
+        best = s.max()
+        win = torch.where(s == best, gidx, _NO_INDEX).min()
+        chosen[t] = torch.where(best > -torch.inf, win, n)
+        row = chosen[t:t + 1]
+        for dev, _, rq, nz, _, _, _, row_map, pod_req, pod_nzr in work:
+            local = row_map.index_select(0, row.to(dev))
+            rq.index_add_(0, local, pod_req[t:t + 1])
+            nz.index_add_(0, local, pod_nzr[t:t + 1])
+    assignment = torch.where(chosen == n, NO_NODE, chosen).to(torch.int32)
+    req_out: list = [None] * mesh.size
+    nzr_out: list = [None] * mesh.size
+    for _, ks, rq, nz, views, _, _, _, _, _ in work:
+        for k, (lo, hi) in zip(ks, views):
+            req_out[k] = rq[lo:hi]
+            nzr_out[k] = nz[lo:hi]
+    return (
+        assignment, ShardedRows(mesh, req_out), ShardedRows(mesh, nzr_out)
+    )
+
+
+def _solve_packed_mesh(
+    pieces, alloc_in, valid_in, req_in, nzr_in, config, mode, mesh,
+):
+    """``solve_packed`` on a NodeMesh (the JAX package's
+    ``make_mesh_packed_solver``): ONE host->device copy per device of
+    the pieces plus the ``[U, N]`` mask rows' columns of that device's
+    shards (shards on one device share it; each shard views only its own
+    columns). The resident state (ShardedRows, or node-sized pieces in
+    the buffer on a cold upload) stays on its devices; row patches apply
+    shard by shard (``shard_local_row_set``). A greedy batch runs the
+    K4 step loop (``_mesh_greedy``). A constrained batch gathers the
+    state onto the first device, runs ``constrained_solve`` (K2 on the
+    card) and splits req'/nzr' back: the function the JAX mesh computes
+    on its GSPMD twin. Returns (assignment [B] int32 on the first
+    device, req', nzr', alloc, valid as ShardedRows)."""
+    by_name = dict(pieces)
+    rows_host = np.ascontiguousarray(np.asarray(by_name["rows"]).astype(bool))
+    u, n = rows_host.shape
+    rest = [(name, arr) for name, arr in pieces if name != "rows"]
+    layout = tuple((name, arr.shape, _piece_kind(arr)) for name, arr in rest)
+    words = [
+        _as_i32(arr).ravel() for _, arr in rest
+        if not isinstance(arr, ConstPiece)
+    ]
+    buf = np.concatenate(words) if words else np.zeros(0, np.int32)
+    t_words = buf.size
+    bounds = mesh.bounds(n)
+    groups = mesh.groups()
+    arrs_by_group = []  # the unpacked buffer of each group's device
+    group_of = [0] * mesh.size
+    shard_rows: list = [None] * mesh.size
+    for g, (dev, ks) in enumerate(groups):
+        cols = np.concatenate(
+            [rows_host[:, lo:hi].ravel() for lo, hi in (bounds[k] for k in ks)]
+        ).view(np.uint8)
+        cols = np.concatenate([cols, np.zeros((-cols.size) % 4, np.uint8)])
+        buf_d = torch.from_numpy(
+            np.concatenate([buf, cols.view(np.int32)])
+        ).to(dev)
+        arrs_by_group.append(_unpack_buffer(buf_d[:t_words], layout))
+        col_bytes = buf_d[t_words:].view(torch.uint8).view(torch.bool)
+        off = 0
+        for k in ks:
+            m = bounds[k][1] - bounds[k][0]
+            shard_rows[k] = col_bytes[off:off + u * m].view(u, m)
+            group_of[k] = g
+            off += u * m
+
+    def state(name, resident, dtype):
+        """Each shard's rows of a node-sized array: from this batch's
+        buffer when it rode the upload, else the resident shard."""
+        out = []
+        for k, g in enumerate(group_of):
+            arrs = arrs_by_group[g]
+            lo, hi = bounds[k]
+            a = arrs[name][lo:hi] if name in arrs else resident.shards[k]
+            out.append(a.to(dtype))
+        return out
+
+    alloc = state("alloc", alloc_in, torch.int32)
+    valid = state("valid", valid_in, torch.bool)
+    req = state("req_state", req_in, torch.int32)
+    nzr = state("nzr_state", nzr_in, torch.int32)
+    for k, g in enumerate(group_of):
+        arrs = arrs_by_group[g]
+        lo, hi = bounds[k]
+        if "didx" in arrs:
+            req[k] = shard_local_row_set(req[k], arrs["didx"], arrs["dreq"], lo, hi)
+            nzr[k] = shard_local_row_set(nzr[k], arrs["didx"], arrs["dnzr"], lo, hi)
+        if "sidx" in arrs:
+            alloc[k] = shard_local_row_set(
+                alloc[k], arrs["sidx"], arrs["salloc"], lo, hi
+            )
+            if "svalid" in arrs:
+                valid[k] = shard_local_row_set(
+                    valid[k], arrs["sidx"], arrs["svalid"] != 0, lo, hi
+                )
+    alloc_out = ShardedRows(mesh, alloc)
+    valid_out = ShardedRows(mesh, valid)
+    if mode == "constrained":
+        first = mesh.first
+        from kubernetes_tpu_torch.ops.constrained_kernel import (
+            constrained_rows,
+        )
+
+        arrs = dict(arrs_by_group[0])  # the first shard's device
+        arrs["rows"] = torch.cat([r.to(first) for r in shard_rows], dim=1)
+        assignment, req_full, nzr_full, _, _ = _packed_solve_tail(
+            arrs, alloc_out.gather(), valid_out.gather(),
+            ShardedRows(mesh, req).gather(), ShardedRows(mesh, nzr).gather(),
+            config, mode, constrained_rows(by_name),
+        )
+        return (
+            assignment, ShardedRows.split(mesh, req_full),
+            ShardedRows.split(mesh, nzr_full), alloc_out, valid_out,
+        )
+    pods = [(arrs["req"], arrs["nzr"], arrs["midx"]) for arrs in arrs_by_group]
+    active = np.asarray(by_name["active"]) != 0
+    assignment, req_out, nzr_out = _mesh_greedy(
+        mesh, alloc, req, nzr, valid, shard_rows, pods, active, config,
+    )
+    return assignment, req_out, nzr_out, alloc_out, valid_out
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def make_sharded_solver(mesh: NodeMesh, config: GreedyConfig = GreedyConfig()):
+    """The stateless node-sharded greedy solve (the JAX package's
+    ``make_sharded_solver``, which ``__graft_entry__.dryrun_multichip``
+    drives): every ``[N, ...]`` operand is split over the mesh's shards,
+    the pod batch goes to every device, and each pod step runs K4 per
+    shard plus the best-of-shards combine (``_mesh_greedy``).
+
+    ``solve(allocatable [N, R], requested [N, R], nzr [N, 2], valid [N],
+    pod_requests [B, R], pod_nzr [B, 2], static_mask [B, N], active [B])``
+    (anything ``np.asarray`` takes, or tensors) returns (assignment [B]
+    int32 on the first device, requested' and nzr' as ShardedRows)."""
+
+    def solve(allocatable, requested, nzr, valid, pod_requests, pod_nzr,
+              static_mask, active):
+        def i32(x):
+            return _host(x).astype(np.int32)
+
+        mask = _host(static_mask).astype(bool)
+        b, n = mask.shape
+        bounds = mesh.bounds(n)
+        pods = [
+            tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (i32(pod_requests), i32(pod_nzr),
+                          np.arange(b, dtype=np.int32))
+            )
+            for dev, _ in mesh.groups()
+        ]
+        # the [B, N] mask is the mask rows, pod t on row t; each shard
+        # takes its own columns
+        rows = [
+            torch.from_numpy(np.ascontiguousarray(mask[:, lo:hi])).to(dev)
+            for dev, (lo, hi) in zip(mesh.devices, bounds)
+        ]
+        return _mesh_greedy(
+            mesh,
+            ShardedRows.split(mesh, i32(allocatable)).shards,
+            ShardedRows.split(mesh, i32(requested)).shards,
+            ShardedRows.split(mesh, i32(nzr)).shards,
+            ShardedRows.split(mesh, _host(valid).astype(bool)).shards,
+            rows, pods, _host(active).astype(bool), config,
+        )
+
+    return solve
 
 
 def apply_assignment_delta(
@@ -754,7 +1024,23 @@ def apply_assignment_delta(
     Keeps the carry warm when the assignments were produced OFF device
     (the host-greedy ladder tier). Dtype-preserving: an int16
     compressed carry accumulates in int32 and narrows back. The inputs
-    are never written."""
+    are never written. A sharded carry (ShardedRows) takes each placed
+    row on the shard that holds it."""
+    if isinstance(req_state, ShardedRows):
+        a = _host(assignments).astype(np.int64)
+        req_sh, nzr_sh = [], []
+        for k, (lo, hi) in enumerate(req_state.bounds):
+            local = np.where((a >= lo) & (a < hi), a - lo, NO_NODE)
+            r_k, z_k = apply_assignment_delta(
+                req_state.shards[k], nzr_state.shards[k],
+                local.astype(np.int32), pod_req, pod_nzr,
+            )
+            req_sh.append(r_k)
+            nzr_sh.append(z_k)
+        return (
+            ShardedRows(req_state.mesh, req_sh),
+            ShardedRows(req_state.mesh, nzr_sh),
+        )
     dev = req_state.device
     n = req_state.shape[0]
     a = torch.as_tensor(np.asarray(assignments), device=dev).long()
@@ -852,6 +1138,7 @@ def solve_packed(
     mode: str = "greedy",
     compress: bool = False,
     device=None,
+    mesh=None,
 ):
     """Host-side companion of _solve_packed: concatenates the pieces
     (int32 / bool / float32 / packed int16 -- see _unpack_buffer's kind
@@ -859,11 +1146,22 @@ def solve_packed(
     ``device`` (the card unless the caller names the CPU). A
     constrained batch's live row counts (constrained_kernel.Rows) come
     from its host-side family pieces. A kernel that fails to build or launch raises:
-    nothing here retries on another path."""
+    nothing here retries on another path.
+
+    ``mesh``: a NodeMesh routes the solve through the node-sharded tier
+    (``_solve_packed_mesh``): the resident inputs and the returned
+    req'/nzr'/alloc/valid are ShardedRows, and ``device`` is the mesh's
+    own. The int16 carry is off on a mesh, as in the JAX package."""
     if mode not in ("greedy", "constrained"):
         raise ValueError(
             f"solve mode {mode!r} is not ported yet: the sinkhorn solve "
             "arrives in a later slice of the port"
+        )
+    if mesh is not None:
+        if compress:
+            raise ValueError("the int16 carry is off on a mesh")
+        return _solve_packed_mesh(
+            pieces, alloc_in, valid_in, req_in, nzr_in, config, mode, mesh,
         )
     rows = None
     if mode == "constrained":
@@ -891,21 +1189,27 @@ def solve_packed(
     )
 
 
-def carry_from_numpy(alloc, valid, req, nzr, config, device):
+def carry_from_numpy(alloc, valid, req, nzr, config, device, mesh=None):
     """The port's resident carry from the arrays the JAX package's
     ``_DeviceNodeState``/``NodeTensor`` hold (anything ``np.asarray``
-    takes) and a GreedyConfig's weights. Returns ((alloc, valid, req,
-    nzr) tensors on ``device`` -- int32, valid bool -- , GreedyConfig)."""
-    device = resolve_device(device)
+    takes: a sharded JAX array gathers) and a GreedyConfig's weights.
+    Returns ((alloc, valid, req, nzr) -- int32, valid bool -- ,
+    GreedyConfig): tensors on ``device``, or with ``mesh`` ShardedRows
+    split over the NodeMesh (``device`` is then ignored)."""
+    if mesh is None:
+        device = resolve_device(device)
 
-    def i32(a):  # np.array copies: the source may be read-only
-        return torch.as_tensor(np.array(a, dtype=np.int32), device=device)
+    def put(a, dtype):  # np.array copies: the source may be read-only
+        a = np.array(a, dtype=dtype)
+        if mesh is not None:
+            return ShardedRows.split(mesh, a)
+        return torch.as_tensor(a, device=device)
 
     carry = (
-        i32(alloc),
-        torch.as_tensor(np.array(valid, dtype=bool), device=device),
-        i32(req),
-        i32(nzr),
+        put(alloc, np.int32),
+        put(valid, bool),
+        put(req, np.int32),
+        put(nzr, np.int32),
     )
     cfg = GreedyConfig(
         least_allocated_weight=int(config.least_allocated_weight),

@@ -164,15 +164,10 @@ def mask_rows_upload(rows: np.ndarray, mesh=None) -> np.ndarray:
     """The ``[U, N]`` mask rows in their upload form. Single-device
     dispatch concatenates them into the int32 single-buffer upload
     (ops/assignment.solve_packed), so they convert to int32 here. On a
-    MESH the rows ship as a bool piece: above
-    ``assignment.MESH_MASK_SHARD_MIN_BYTES`` ``solve_packed`` pulls
-    them out of the replicated buffer and device_puts them COLUMN-
-    sharded over the node axis -- each shard's host->device link then
-    carries only its ``[U, N/P]`` 1-byte columns instead of the full
-    replicated 4-byte rows, the same routing the delta-scatter slots
-    get (below the cutoff they stay in the buffer: the extra
-    per-operand link round trip would cost more than the bytes
-    save)."""
+    MESH (an ops.mesh.NodeMesh) the rows ship as a bool piece, which
+    ``solve_packed`` splits by shard columns: each device's one upload
+    carries only its shards' ``[U, n_k]`` 1-byte columns, always (the
+    JAX package's byte threshold for this split is not carried over)."""
     if mesh is not None:
         return np.ascontiguousarray(rows, dtype=bool)
     return rows.astype(np.int32)

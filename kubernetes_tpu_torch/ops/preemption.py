@@ -41,6 +41,7 @@ import torch
 
 from kubernetes_tpu_torch.api.selectors import labels_match_mask
 from kubernetes_tpu_torch.api.types import Pod, PodDisruptionBudget
+from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.ops.assignment import _fits
 from kubernetes_tpu_torch.tensors import pack_pod_batch
 from kubernetes_tpu_torch.tensors.node_tensor import NodeTensor
@@ -462,18 +463,20 @@ def preempt_batch_device(
     nom_req: np.ndarray,  # [M, R]
     nom_prio: np.ndarray,  # [M]
     nom_node: np.ndarray,  # [M]
-    device="cpu",
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """One device call for a whole failed-pod group on ``device``: K3 on
-    the card, its plain version on the CPU (``preempt_kernel``
-    decides). Returns host arrays (chosen [B], victims [B, V],
-    victims_violating [B, V], num_violating [B]).
+    """One device call for a whole failed-pod group on ``device`` (the
+    card unless the caller names the CPU; with no visible card the
+    default raises): K3 on the card, its plain version on the CPU
+    (``preempt_kernel`` decides). Returns host arrays (chosen [B],
+    victims [B, V], victims_violating [B, V], num_violating [B]).
 
     The candidate masks arrive deduplicated: a wave shares a handful of
     static-mask rows x potential-node lists, so no [B, N] matrix is
     built or shipped."""
     from kubernetes_tpu_torch.ops import preempt_kernel
 
+    device = resolve_device(device)
     b = pods_req.shape[0]
     v = pack.req.shape[1]
     if b > 1 and not (pods_prio[:-1] >= pods_prio[1:]).all():

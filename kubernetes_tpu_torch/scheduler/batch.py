@@ -23,7 +23,10 @@ reference runs unsupported pods through extenders.
 In this port each solve is ONE hand-written CUDA kernel on torch
 tensors resident on the card: the greedy solve (ops/greedy_kernel.py)
 and, for a batch with spread, affinity, host-port or score-dynamic
-families, the constrained solve (ops/constrained_kernel.py).
+families, the constrained solve (ops/constrained_kernel.py). On a
+node-sharded mesh (``mesh=``, ops/mesh.py) the resident state lives
+sharded and a greedy batch steps through K4, the shard-candidate kernel
+(ops/shard_kernel.py), once per pod.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from kubernetes_tpu_torch.framework.interface import (
     PodInfo,
     Status,
 )
-from kubernetes_tpu_torch.device import resolve_device, synchronize
+from kubernetes_tpu_torch.device import synchronize
 from kubernetes_tpu_torch.ops.assignment import (
     ConstPiece,
     GreedyConfig,
@@ -74,6 +77,7 @@ from kubernetes_tpu_torch.ops.host_masks import (
     mask_rows_upload,
     static_mask_compact,
 )
+from kubernetes_tpu_torch.ops.mesh import ShardedRows, solve_device
 from kubernetes_tpu_torch.ops.scoring import (
     ScoreEnvelopeExceeded,
     batch_selector_spread_live,
@@ -197,11 +201,13 @@ def _mirror_scatter(assignments, b, req, nzr, req_shadow, nzr_shadow):
 
 
 def _to_host(arr) -> np.ndarray:
-    """A solver output as numpy: a device tensor is copied to the host
-    (blocking until the solve that produces it has run); host tiers
-    already hand back numpy."""
+    """A solver output as numpy: a device tensor (or a sharded one,
+    gathered) is copied to the host (blocking until the solve that
+    produces it has run); host tiers already hand back numpy."""
     if isinstance(arr, torch.Tensor):
         return arr.cpu().numpy()
+    if isinstance(arr, ShardedRows):
+        return arr.numpy()
     return np.asarray(arr)
 
 
@@ -418,7 +424,22 @@ def _audit_checksum_dev(arr):
     (whose own wrap is mod 2^64) and reduce mod 2^32 at the end: the
     same ring as numpy's wrapping int32 sums, so the pair equals the
     host's bit for bit. Returns device scalars (the caller converts
-    once, batching the sync)."""
+    once, batching the sync). A sharded carry sums shard by shard with
+    each row's GLOBAL weight, on the mesh's first device: the ring
+    makes the per-shard int64 sums wrap to the host's pair too."""
+    if isinstance(arr, ShardedRows):
+        first = arr.mesh.first
+        s = ws = torch.zeros((), dtype=torch.int64, device=first)
+        for shard, (lo, hi) in zip(arr.shards, arr.bounds):
+            a = shard.to(torch.int64)
+            if a.ndim == 1:
+                a = a[:, None]
+            w = torch.arange(
+                lo + 1, hi + 1, dtype=torch.int64, device=a.device
+            )[:, None]
+            s = s + a.sum().to(first)
+            ws = ws + (a * w).sum().to(first)
+        return _wrap_i32(s), _wrap_i32(ws)
     a = arr.to(torch.int64)
     if a.ndim == 1:
         a = a[:, None]
@@ -503,12 +524,19 @@ class BatchScheduler(Scheduler):
         """``solver_mode``: "greedy" replays the sequential argmax exactly
         (parity mode); the "sinkhorn" mode is not ported yet.
 
-        ``mesh``: the multi-device tier is not ported yet; only None is
-        accepted.
+        ``mesh``: an optional ``ops.mesh.NodeMesh``: the resident node
+        state lives sharded over its devices (ShardedRows), a greedy
+        batch solves through the shard-candidate kernel K4 with a
+        best-of-shards combine per pod, a constrained batch through K2
+        on the gathered state, and ``self.device`` is the mesh's first
+        device (where assignments, the preemption wave and warmup's
+        extra kernels run). The int16 carry is off on a mesh, as in the
+        JAX package.
 
         ``device``: where the resident node state and the solve live --
         the card (``"cuda"``) unless the caller names the CPU; with no
-        visible card the default raises."""
+        visible card the default raises. With a mesh it must be None or
+        the mesh's first device."""
         if solver_mode == "sinkhorn":
             raise ValueError(
                 "solver_mode='sinkhorn' is not ported yet: it arrives in a "
@@ -516,13 +544,8 @@ class BatchScheduler(Scheduler):
             )
         if solver_mode != "greedy":
             raise ValueError(f"unknown solver_mode {solver_mode!r}")
-        if mesh is not None:
-            raise ValueError(
-                "a device mesh is not ported yet: the multi-GPU tier "
-                "arrives in a later slice of the port (ROADMAP Queue 1 "
-                "item 9)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = solve_device(device, mesh)
         super().__init__(*args, **kwargs)
         self.max_batch = max_batch
         self.solver_config = solver_config
@@ -664,7 +687,8 @@ class BatchScheduler(Scheduler):
         # guard band, so the narrowed carry is bit-exact.
         # KTPU_CARRY_COMPRESS=0 pins the int32 carry (the A/B knob).
         self.carry_compress_enabled = (
-            os.environ.get("KTPU_CARRY_COMPRESS", "1") != "0"
+            mesh is None
+            and os.environ.get("KTPU_CARRY_COMPRESS", "1") != "0"
         )
 
     # -- one batch ----------------------------------------------------------
@@ -997,6 +1021,16 @@ class BatchScheduler(Scheduler):
         (ops/greedy_kernel.greedy_solve makes the choice itself: the
         kernel on the card, its plain PyTorch version on the CPU)."""
         return TIER_CUDA if self.device.type == "cuda" else TIER_TORCH
+
+    @property
+    def mesh_solver_tier(self) -> str:
+        """The tier the mesh actually solved on ("cuda": K4 and K2 on
+        the card; "torch": their plain versions on a CPU mesh) once any
+        batch did; empty off-mesh or before the first device solve."""
+        if self.mesh is None:
+            return ""
+        tier = self._device_tier()
+        return tier if self.ladder.solves_by_tier.get(tier) else ""
 
     def _pending_has_required_anti(self) -> bool:
         with self._pending_cv:
@@ -2155,7 +2189,7 @@ class BatchScheduler(Scheduler):
             ("nzr", nzr),
             ("midx", midx),
             ("active", active.astype(np.int32)),
-            ("rows", mask_rows_upload(rows)),
+            ("rows", mask_rows_upload(rows, self.mesh)),
         ]
         if not static_ok:
             pieces.append(("alloc", nt.allocatable))
@@ -2238,6 +2272,7 @@ class BatchScheduler(Scheduler):
                 mode=solve_mode,
                 compress=compress,
                 device=self.device,
+                mesh=self.mesh,
             )
 
         def run_host_greedy():
@@ -2899,9 +2934,17 @@ class BatchScheduler(Scheduler):
             row = (fired * 131) % n
             # on a copy: the resident tensor may still feed a queued solve
             bump = 1 << 20 if ds.req_dev.dtype == torch.int32 else 1 << 12
-            corrupted = ds.req_dev.clone()
-            corrupted[row, 0] += bump
-            ds.req_dev = corrupted
+            if isinstance(ds.req_dev, ShardedRows):
+                # only the shard that holds the row is copied
+                k, local = ds.req_dev.locate(row)
+                shards = list(ds.req_dev.shards)
+                shards[k] = shards[k].clone()
+                shards[k][local, 0] += bump
+                ds.req_dev = ShardedRows(ds.req_dev.mesh, shards)
+            else:
+                corrupted = ds.req_dev.clone()
+                corrupted[row, 0] += bump
+                ds.req_dev = corrupted
         flightrecorder.mark("carry_corrupt", row=row)
         logger.warning(
             "injected carry corruption on resident row %d", row
@@ -3965,7 +4008,12 @@ class BatchScheduler(Scheduler):
         so one small pad serves every batch. All pods are inactive
         padding, so every solve leaves the state unchanged. A kernel
         that fails to build or launch raises here; warmup swallows
-        nothing."""
+        nothing.
+
+        On a mesh the same layouts run through the sharded solve, with
+        ONE active pod that no node admits (its mask row is all False),
+        so K4 builds and launches on every shard while the state stays
+        unchanged (an inactive pod never reaches K4 on a mesh)."""
         snapshot = self.algorithm.snapshot
         self.cache.update_snapshot(snapshot)
         nt = self.tensor_cache.update(snapshot)
@@ -3974,13 +4022,23 @@ class BatchScheduler(Scheduler):
         n = nt.capacity
         r = nt.dims.num_dims
         dev = self.device
-        kw = dict(config=self.solver_config, mode=self.solver_mode, device=dev)
+        kw = dict(
+            config=self.solver_config, mode=self.solver_mode, device=dev,
+            mesh=self.mesh,
+        )
+        active = np.zeros(POD_BUCKET, dtype=np.int32)
+        midx = np.zeros(POD_BUCKET, dtype=np.int32)
+        if self.mesh is not None:
+            active[0] = 1
+            midx[0] = MASK_ROW_BUCKET - 1  # an all-False row
         base = [
             ("req", np.zeros((POD_BUCKET, r), dtype=np.int32)),
             ("nzr", np.zeros((POD_BUCKET, 2), dtype=np.int32)),
-            ("midx", np.zeros(POD_BUCKET, dtype=np.int32)),
-            ("active", np.zeros(POD_BUCKET, dtype=np.int32)),
-            ("rows", np.zeros((MASK_ROW_BUCKET, n), dtype=np.int32)),
+            ("midx", midx),
+            ("active", active),
+            ("rows", mask_rows_upload(
+                np.zeros((MASK_ROW_BUCKET, n), dtype=bool), self.mesh
+            )),
         ]
         static_pieces = [
             ("alloc", np.zeros((n, r), dtype=np.int32)),

@@ -742,10 +742,13 @@ def new_scheduler(
     """Build a fully wired scheduler (reference scheduler.go:223 New +
     factory.go create). ``batch=True`` selects the batch-solver loop,
     whose solve runs on ``device``: the card (``"cuda"``) unless the
-    caller names the CPU. With no visible card the default raises."""
-    from kubernetes_tpu_torch.device import resolve_device
+    caller names the CPU. With no visible card the default raises.
+    ``mesh`` (an ``ops.mesh.NodeMesh``) shards the batch solve's node
+    state over its devices; the scheduler's device is then the mesh's
+    first, where the preemption wave runs too."""
+    from kubernetes_tpu_torch.ops.mesh import solve_device
 
-    device = resolve_device(device)
+    device = solve_device(device, mesh)
     registry = new_in_tree_registry()
     registry.merge(out_of_tree_registry)
 
@@ -891,9 +894,12 @@ def new_scheduler_from_config(
     """Build the scheduler straight from a KubeSchedulerConfiguration
     (config/loader.py), including this build's tpuSolver block: batch
     mode, maxBatch and solverMode, solved on ``device`` (the card unless
-    the caller names the CPU). meshDevices > 0 is rejected: the
-    multi-device tier arrives in a later slice of the port."""
+    the caller names the CPU). meshDevices > 0 shards the solve over a
+    NodeMesh of that many devices: distinct visible CUDA devices on the
+    card (too few raises, as the JAX package does), or that many CPU
+    shards with ``device="cpu"``."""
     from kubernetes_tpu_torch.config.validation import validate_config
+    from kubernetes_tpu_torch.device import resolve_device
 
     errors = validate_config(cfg)
     if errors:
@@ -901,12 +907,26 @@ def new_scheduler_from_config(
             "invalid KubeSchedulerConfiguration: " + "; ".join(errors)
         )
     ts = cfg.tpu_solver
+    mesh = None
     if ts.enabled and ts.mesh_devices > 0:
-        raise ValueError(
-            f"tpuSolver.meshDevices={ts.mesh_devices} is not ported yet: "
-            "the multi-GPU tier arrives in a later slice of the port "
-            "(ROADMAP Queue 1 item 9)"
-        )
+        import torch
+
+        from kubernetes_tpu_torch.ops.mesh import NodeMesh
+
+        base = resolve_device(device)
+        if base.type == "cuda":
+            visible = torch.cuda.device_count()
+            if visible < ts.mesh_devices:
+                raise ValueError(
+                    f"tpuSolver.meshDevices={ts.mesh_devices} but only "
+                    f"{visible} devices are visible"
+                )
+            mesh = NodeMesh(
+                [f"cuda:{i}" for i in range(ts.mesh_devices)]
+            )
+        else:
+            mesh = NodeMesh([base] * ts.mesh_devices)
+        device = None
     from kubernetes_tpu_torch.robustness.containment import ContainmentConfig
     from kubernetes_tpu_torch.robustness.faults import (
         injector_from_configuration,
@@ -933,6 +953,7 @@ def new_scheduler_from_config(
         ),
         bind_ack_config=getattr(cfg, "bind_ack", None),
         device=device,
+        mesh=mesh,
     )
     if ts.enabled:
         sched.batch_window = ts.batch_window_seconds

@@ -15,10 +15,16 @@ line is printed only when every phase passed):
 3. ``kernel_vs_twin``: K1 against its plain PyTorch version on the card,
    on seeded inputs at the burst's full shape (B=4,096 pods, N=5,632 node
    rows, R=4, U=8 mask rows) and at R=6 with scalar dims, with all-zero
-   pods, over-committed and invalid rows and inactive padding. The
-   tolerance is zero: assignments, requested' and nzr' must be
-   bit-equal. Times the kernel with CUDA events after a warmup launch,
-   and the plain version with the host clock.
+   pods, over-committed and invalid rows and inactive padding; on
+   SchedulingBasic's own batch (every pod 250m/512Mi on one mask row);
+   and at N=131,072 rows x B=512, above K1's shape gate, so both the
+   resident and the streaming side run. The tolerance is zero:
+   assignments, requested' and nzr' must be bit-equal. Times the kernel
+   with CUDA events after a warmup launch, and the plain version with the
+   host clock. Each record names the launch plan (cluster size, threads,
+   gate side, shared memory per CTA), ptxas's registers and spills for
+   that side, and the microseconds per active pod step; a cluster of one
+   CTA fails the phase.
 4. ``constrained_kernel_vs_twin``: K2 against its plain PyTorch version
    on the card at the constrained burst's shape (B=1,024 with inactive
    padding, N=5,632 node rows, R=4), packed by the port's own packers
@@ -29,9 +35,12 @@ line is printed only when every phase passed):
    and hostname keys, preferred (anti-)affinity, soft spread, preferred
    node affinity and Service-selected pods. Cases: all three families at
    their live rows, at every row the packers emit, and each family alone
-   (the other two as constants). Tolerance zero on assignments,
-   requested' and nzr'. K2 is timed with CUDA events after a warmup
-   launch, the plain version with the host clock.
+   (the other two as constants); then 64 pods on 36,400 nodes (40,960
+   rows, above the reference's 32,768-node constrained cap) and on 72,800
+   nodes (81,920 rows, above K2's shape gate: the streaming side).
+   Tolerance zero on assignments, requested' and nzr'. K2 is timed with
+   CUDA events after a warmup launch, the plain version with the host
+   clock; each record names the launch plan as phase 3's do.
 4b. ``preempt_kernel_vs_twin``: K3 against its plain PyTorch version on
    the card, tolerance zero on chosen nodes, victim and violating masks,
    violation counts and state'. Cases: (a) Preemption/5000's wave shape
@@ -114,6 +123,7 @@ non-zero without one.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -137,6 +147,8 @@ N_NODES = 5000
 N_PODS = 10000
 MAX_BATCH = 4096
 BURST_SHAPE = dict(n=5632, b=4096, r=4, u=8)  # N_NODES + headroom, 128-padded
+# K1 above its shape gate: more rows than 16 CTAs hold in shared memory
+GATE_SHAPE = dict(n=131072, b=512, r=4, u=8)
 
 
 def emit(phase, **fields):
@@ -251,16 +263,82 @@ def kernel_bytes(n, b, r, u):
     return inputs + outputs
 
 
+def homogeneous_problem(n, b, r, u):
+    """SchedulingBasic's batch as K1 sees it: 5,000 live rows of 32 CPU /
+    64Gi / 110 pods (the rest capacity padding), every pod 250m / 512Mi on
+    one all-true mask row."""
+    live = min(n, N_NODES)
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:live, 0] = 32000
+    alloc[:live, 1] = 64 * 1024 * 1024
+    alloc[:live, 3] = 110
+    requested = np.zeros_like(alloc)
+    nzr = np.zeros((n, 2), np.int32)
+    valid = np.zeros(n, bool)
+    valid[:live] = True
+    pod_req = np.zeros((b, r), np.int32)
+    pod_req[:, 0] = 250
+    pod_req[:, 1] = 512 * 1024
+    pod_req[:, 3] = 1
+    pod_nzr = pod_req[:, :2].copy()
+    rows = np.zeros((u, n), bool)
+    rows[0] = True
+    midx = np.zeros(b, np.int32)
+    active = np.ones(b, bool)
+    return [alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, active]
+
+
+def ptxas_report(mod, resident):
+    """Registers and spill bytes ptxas reported for the kernel's resident
+    or streaming instantiation (the build's -Xptxas -v log)."""
+    want = "ILb1E" if resident else "ILb0E"
+    out = {}
+    current = None
+    for line in mod.last_build.get("log", "").splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or want not in current:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
+
+
+def plan_record(mod, active_pods, ms):
+    """The last launch's cluster, gate side and shared memory, the
+    instantiation's registers and spills, and the time per active pod."""
+    plan = mod.last_plan
+    return dict(
+        cluster=plan.cluster, threads=plan.threads,
+        side="resident" if plan.resident else "streaming",
+        smem_bytes_per_cta=plan.smem_bytes + plan.static_bytes,
+        ptxas=ptxas_report(mod, plan.resident),
+        us_per_pod_step=ms * 1e3 / max(active_pods, 1),
+    )
+
+
 def kernel_vs_twin(gk, asg_mod, cfg_cls):
     cases = [
-        ("burst_r4", 0, BURST_SHAPE, cfg_cls()),
-        ("burst_r4_most_allocated", 1, BURST_SHAPE, cfg_cls(0, 0, 1)),
-        ("scalar_r6", 2, dict(BURST_SHAPE, r=6), cfg_cls()),
+        ("burst_r4", random_problem(0, **BURST_SHAPE), BURST_SHAPE, cfg_cls()),
+        ("burst_r4_most_allocated", random_problem(1, **BURST_SHAPE),
+         BURST_SHAPE, cfg_cls(0, 0, 1)),
+        ("scalar_r6", random_problem(2, **dict(BURST_SHAPE, r=6)),
+         dict(BURST_SHAPE, r=6), cfg_cls()),
+        ("burst_homogeneous", homogeneous_problem(**BURST_SHAPE),
+         BURST_SHAPE, cfg_cls()),
+        # above what 16 CTAs hold in shared memory: the streaming side
+        ("above_resident_gate", random_problem(3, **GATE_SHAPE), GATE_SHAPE,
+         cfg_cls()),
     ]
     timing = None
     max_err = 0.0
-    for name, seed, shape, cfg in cases:
-        host = random_problem(seed, **shape)
+    for name, host, shape, cfg in cases:
         dev = [torch.from_numpy(a).cuda() for a in host]
         torch.cuda.synchronize()
         k_out = gk.greedy_solve_cuda(*dev, config=cfg)  # warm launch
@@ -298,10 +376,13 @@ def kernel_vs_twin(gk, asg_mod, cfg_cls):
             pairs_tested=tested, pairs_scored=scored, ops=ops,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms > ops_ms else "operations",
+            **plan_record(gk, int(host[8].sum()), ms),
         )
         emit("kernel_vs_twin", **rec)
         if not all(equal):
             raise AssertionError(f"kernel disagrees with its twin on {name}")
+        if rec["cluster"] < 2:
+            raise AssertionError(f"{name} launched a cluster of one CTA")
         if name == "burst_r4":
             timing = rec
     return timing, max_err
@@ -453,6 +534,12 @@ def shard_kernel_vs_twin(sk):
 ZONE_KEY = "topology.kubernetes.io/zone"
 HOST_KEY = "kubernetes.io/hostname"
 CONSTRAINED_SHAPE = dict(nodes=N_NODES, zones=10, existing=2000, pods=1000)
+# 36,400 nodes pack into 40,960 rows: above the reference's 32,768-node
+# CONSTRAINED_NODE_CAP, where it sends constrained batches to the host
+CAPPED_SHAPE = dict(nodes=36400, zones=10, existing=2000, pods=64)
+# 72,800 nodes pack into 81,920 rows: above what 16 CTAs of K2 hold in
+# shared memory, so K2 runs on the streaming side of its gate
+K2_GATE_SHAPE = dict(nodes=72800, zones=10, existing=2000, pods=64)
 
 
 class _Lister:
@@ -483,9 +570,10 @@ class _ServiceInformers:
         return _Lister()
 
 
-def constrained_problem(seed):
-    """A constrained batch at the burst's shape, packed as the batch
-    scheduler packs it, by the port's packers: host arrays of the common
+def constrained_problem(seed, shape=CONSTRAINED_SHAPE, padded=None):
+    """A constrained batch at the burst's shape (or ``shape``), packed as
+    the batch scheduler packs it, by the port's packers, into ``padded``
+    pod slots (default MAX_CONSTRAINED_BATCH): host arrays of the common
     operands and the three padded family tuples (and their no-op
     twins)."""
     import random
@@ -506,7 +594,6 @@ def constrained_problem(seed):
     from kubernetes_tpu_torch.testing import make_node, make_pod
 
     rng = random.Random(seed)
-    shape = CONSTRAINED_SHAPE
     nodes = []
     for i in range(shape["nodes"]):
         # some nodes lack the zone or the rack label (ineligible for the
@@ -581,7 +668,7 @@ def constrained_problem(seed):
     batch = pack_pod_batch(pods, nt.dims)
     mask_rows, mask_index = static_mask_compact(pods, snap, nt)
     b = batch.size
-    padded = MAX_CONSTRAINED_BATCH
+    padded = padded or MAX_CONSTRAINED_BATCH
     order = batch.order
     req = np.zeros((padded, nt.dims.num_dims), np.int32)
     nzr = np.zeros((padded, 2), np.int32)
@@ -698,20 +785,26 @@ def k2_operations(host, fams, counts, cfg):
 
 def constrained_kernel_vs_twin(ck, asg_mod):
     t_pack = time.perf_counter()
-    host, fams, noops = constrained_problem(7)
+    burst = constrained_problem(7)
     pack_s = time.perf_counter() - t_pack
+    capped = constrained_problem(11, CAPPED_SHAPE, padded=64)
+    streamed = constrained_problem(13, K2_GATE_SHAPE, padded=64)
     cfg = asg_mod.GreedyConfig()
     # K2 at each family's live rows, and at every row the packers emit
     # (padding rows that change nothing); the plain version runs every row
-    cases = [("all_live_rows", (0, 1, 2), True),
-             ("all_packed_rows", (0, 1, 2), False)]
+    cases = [("all_live_rows", burst, (0, 1, 2), True),
+             ("all_packed_rows", burst, (0, 1, 2), False)]
     for k, name in enumerate(("spread_alone", "affinity_alone",
                               "scoring_alone")):
-        cases.append((name, (k,), True))
-    dev_common = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in host]
+        cases.append((name, burst, (k,), True))
+    cases.append(("above_node_cap", capped, (0, 1, 2), True))
+    cases.append(("above_resident_gate", streamed, (0, 1, 2), True))
     timing = None
     max_err = 0.0
-    for name, live, at_live_rows in cases:
+    for name, (host, fams, noops), live, at_live_rows in cases:
+        dev_common = [
+            torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in host
+        ]
         case_fams = tuple(fams[k] if k in live else noops[k] for k in range(3))
         rows = ck.live_rows(
             *(fams[k] if k in live else None for k in range(3))
@@ -756,14 +849,16 @@ def constrained_kernel_vs_twin(ck, asg_mod):
         ) + k_out[0].numel() * 4 + 2 * (k_out[1].numel() + k_out[2].numel())
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+        active = int(host[8].sum())
         rec = dict(
             case=name, rows=None if rows is None else dict(rows._asdict()),
-            equal=equal,
-            max_abs_err=err, active=int(host[8].sum()),
+            node_rows=int(host[0].shape[0]), equal=equal,
+            max_abs_err=err, active=active,
             placed=int((k_out[0] >= 0).sum()), ms=ms, plain_ms=plain_ms,
             pairs=pairs, ops=ops, bytes=n_bytes,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms > ops_ms else "operations",
+            **plan_record(ck, active, ms),
         )
         if name == "all_live_rows":
             rec["pack_seconds"] = pack_s
@@ -771,6 +866,8 @@ def constrained_kernel_vs_twin(ck, asg_mod):
         emit("constrained_kernel_vs_twin", **rec)
         if not all(equal):
             raise AssertionError(f"K2 disagrees with its twin on {name}")
+        if rec["cluster"] < 2:
+            raise AssertionError(f"{name} launched a cluster of one CTA")
     return timing, max_err
 
 

@@ -3,7 +3,9 @@
 Replaces ``kubernetes_tpu/ops/pallas_constrained.py::_constrained_kernel``
 (entry ``pallas_constrained_solve``). The source is
 ``csrc/constrained_solve.cu``; its header says what bounds the kernel on
-the card and what the simple one-block design leaves on the table. The
+the card and how its thread-block cluster works. Each launch is one
+cluster planned by ``plan_for`` (``ops/cluster_plan``), and every CTA
+replays into its own copy of the value-space counts. The
 kernel's plain PyTorch version is ``ops/assignment.greedy_assign_constrained``
 (the port of the reference's XLA scan): ``constrained_solve`` takes it only
 for tensors that lie on the CPU. A tensor on the card launches the kernel
@@ -36,6 +38,12 @@ from kubernetes_tpu_torch.ops.assignment import (
     GreedyConfig,
     greedy_assign_constrained,
 )
+from kubernetes_tpu_torch.ops.cluster_plan import (
+    LaunchPlan,
+    card_admits,
+    choose_plan,
+    plan_launch,
+)
 from kubernetes_tpu_torch.ops.kernel_build import (
     KernelError,
     build_library,
@@ -44,7 +52,7 @@ from kubernetes_tpu_torch.ops.kernel_build import (
 
 __all__ = [
     "KernelError", "Rows", "build", "constrained_rows",
-    "constrained_solve", "constrained_solve_cuda", "live_rows",
+    "constrained_solve", "constrained_solve_cuda", "live_rows", "plan_for",
 ]
 
 # Packer maximums (ops/affinity.py, ops/scoring.py)
@@ -54,7 +62,20 @@ _RP = 16        # scoring.MAX_IPA_ROWS
 
 # what one launch holds (csrc/constrained_solve.cu kMax*)
 _MAX_SLOTS = 4   # hard-spread / affinity / anti / soft slots per pod
+_MAX_GROUPS = 16  # topology.MAX_GROUPS, scoring.MAX_SOFT_GROUPS
+_MAX_SEL_GROUPS = 8  # scoring.MAX_SEL_GROUPS
 _MAX_ZONES = 64  # scoring.MAX_ZONES
+
+
+def plan_for(n: int, r: int, cluster: int, static_bytes: int = 0) -> LaunchPlan:
+    """K2's launch plan for N rows of R dims on at most ``cluster`` CTAs.
+    A resident row holds alloc, req, nzr, its soft and preferred-affinity
+    raw values and its flags; every CTA holds two pod requests and one
+    parameter warp (csrc/constrained_solve.cu dynamic_smem_bytes)."""
+    return plan_launch(
+        n, cluster, node_bytes=4 * (2 * r + 4) + 1, fixed_bytes=4 * 2 * r,
+        static_bytes=static_bytes, extra_warps=1,
+    )
 
 
 class Rows(NamedTuple):
@@ -119,15 +140,20 @@ builds = 0
 launches = 0
 #: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
+#: the plan of the last launch
+last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+_static_bytes = 0
+#: clusters the card holds at once, per planned shape
+_admitted: dict = {}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process and source hash) and load the kernel
     library. Raises KernelError when nvcc fails."""
-    global _lib, builds
+    global _lib, builds, _static_bytes
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -136,8 +162,15 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        ] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.constrained_solve_max_clusters.restype = ctypes.c_int
+        lib.constrained_solve_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.constrained_solve_static_smem.restype = ctypes.c_int
+        lib.constrained_solve_static_smem.argtypes = [ctypes.c_int]
+        static = [lib.constrained_solve_static_smem(k) for k in (0, 1)]
+        if min(static) < 0:
+            raise KernelError("cannot read constrained_solve's attributes")
+        _static_bytes = max(static)
         last_build.update(info)
         builds += 1
         _lib = lib
@@ -155,7 +188,7 @@ def constrained_solve_cuda(
     preferred-affinity tensors. ``rows`` (None: every row) sets each
     family's live rows (live_rows). Returns fresh (assignment [B] int32,
     requested' [N, R], nzr' [N, 2]); the inputs are never written."""
-    global launches
+    global launches, last_plan
     device = allocatable.device
     if device.type != "cuda":
         raise KernelError(
@@ -199,6 +232,8 @@ def constrained_solve_cuda(
     )
     if max(c_sp, c_aff_slots, c_anti_slots, c_soft) > _MAX_SLOTS:
         raise KernelError(f"more than {_MAX_SLOTS} slots per pod")
+    if max(live.g_sp, live.gt) > _MAX_GROUPS or live.g_sel > _MAX_SEL_GROUPS:
+        raise KernelError(f"group counts beyond what K2 holds: {live}")
     if not 1 <= z <= _MAX_ZONES:
         raise KernelError(f"{z} zones: K2 holds 1 to {_MAX_ZONES}")
     if max(live.ra, live.rt) > _RA or live.re > _RE or live.rp > _RP:
@@ -207,9 +242,21 @@ def constrained_solve_cuda(
     def chk(t, name, dtype, shape):
         return check_tensor(t, name, dtype, shape, device)
 
-    # the count tensors are replayed into fresh copies of the live rows
-    def scratch(t, name, dtype, shape, count):
-        return chk(t, name, dtype, shape)[:count].clone()
+    empty = b == 0 or n == 0 or u == 0
+    lib = plan = None
+    if not empty:
+        lib = build()
+        with torch.cuda.device(device):
+            plan = _plan(lib, n, r)
+    copies = 1 if plan is None else plan.cluster
+
+    # the value-space count tensors are replayed into fresh copies of the
+    # live rows, one per CTA; SelectorSpread's node-space counts into one
+    def scratch(t, name, dtype, shape, count, per_cta=True):
+        head = chk(t, name, dtype, shape)[:count]
+        if not per_cta:
+            return head.clone()
+        return head.unsqueeze(0).repeat(copies, 1, 1)
 
     operands = [
         chk(allocatable, "allocatable", i32, (n, r)),
@@ -248,7 +295,10 @@ def constrained_solve_cuda(
         chk(nodeaff, "sc_nodeaff", i32, (s, n)),
         chk(taint, "sc_taint", i32, (s, n)),
         chk(pod_sig, "sc_pod_sig", i32, (b,)),
-        scratch(sel_counts, "sc_sel_counts", i32, (gs_rows, n), live.g_sel),
+        scratch(
+            sel_counts, "sc_sel_counts", i32, (gs_rows, n), live.g_sel,
+            per_cta=False,
+        ),
         chk(zone_id, "sc_zone_id", i32, (n,)),
         chk(sel_group, "sc_pod_sel_group", i32, (b,)),
         chk(sel_match, "sc_pod_sel_match", i32, (b, gs_rows)),
@@ -272,16 +322,17 @@ def constrained_solve_cuda(
     asg = torch.empty(b, dtype=i32, device=device)
     req_out = torch.empty((n, r), dtype=i32, device=device)
     nzr_out = torch.empty((n, 2), dtype=i32, device=device)
-    if b == 0 or n == 0 or u == 0:
+    if empty:
         asg.fill_(-1)
         req_out.copy_(requested)
         nzr_out.copy_(nzr)
         return asg, req_out, nzr_out
     operands += [
         asg, req_out, nzr_out,
-        torch.empty(n, dtype=torch.uint8, device=device),  # node flags
+        # each row's pass-1 results on the streaming side
+        torch.empty(n, dtype=torch.uint8, device=device),  # flags
         torch.empty(n, dtype=i32, device=device),  # soft raw
-        torch.empty(n, dtype=f32, device=device),  # ipa raw
+        torch.empty(n, dtype=f32, device=device),  # preferred-affinity raw
     ]
     dims = [
         n, r, b, u, s, z,
@@ -296,7 +347,6 @@ def constrained_solve_cuda(
         live.gt, v_soft, c_soft, gt_rows,
         live.rp, v_ipa, rp_rows,
     ]
-    lib = build()
     ptr_arr = (ctypes.c_void_p * len(operands))(
         *(t.data_ptr() for t in operands)
     )
@@ -304,14 +354,25 @@ def constrained_solve_cuda(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.constrained_solve_launch(
-            ptr_arr, len(operands), dim_arr, len(dims), stream
+            ptr_arr, len(operands), dim_arr, len(dims),
+            plan.cluster, plan.threads, int(plan.resident), plan.smem_bytes,
+            stream,
         )
     if err != 0:
         raise KernelError(
             f"constrained_solve_kernel launch failed: cudaError {err}"
         )
     launches += 1
+    last_plan = plan
     return asg, req_out, nzr_out
+
+
+def _plan(lib, n: int, r: int) -> LaunchPlan:
+    """The plan at the largest cluster the current card admits."""
+    return choose_plan(
+        lambda c: plan_for(n, r, c, _static_bytes),
+        card_admits(lib.constrained_solve_max_clusters, _admitted, torch.cuda.current_device()),
+    )
 
 
 def constrained_solve(

@@ -2,11 +2,15 @@
 
 Replaces ``kubernetes_tpu/ops/pallas_solver.py::_solver_kernel`` (entry
 ``pallas_greedy_solve``). The source is ``csrc/greedy_solve.cu``; its
-header says what bounds the kernel on the card and what the simple
-one-block design leaves on the table. The kernel's plain PyTorch version
-is ``ops/assignment.greedy_assign_compact`` (the loop over pods in
+header says what bounds the kernel on the card and how its thread-block
+cluster works. The kernel's plain PyTorch version is
+``ops/assignment.greedy_assign_compact`` (the loop over pods in
 ``_greedy_assign_impl``): ``greedy_solve`` takes it only for tensors that
 lie on the CPU. A tensor on the card launches the kernel or raises.
+
+Each launch is one cluster planned by ``plan_for`` (``ops/cluster_plan``):
+the largest cluster the card admits, and the node slices resident in
+shared memory when they fit, streamed from device memory otherwise.
 
 Build: ``ops/kernel_build.build_library`` (nvcc for ``sm_90a`` into a
 library with a plain C interface, loaded with ctypes, at first use).
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,13 +28,34 @@ from kubernetes_tpu_torch.ops.assignment import (
     GreedyConfig,
     greedy_assign_compact,
 )
+from kubernetes_tpu_torch.ops.cluster_plan import (
+    LaunchPlan,
+    card_admits,
+    choose_plan,
+    plan_launch,
+)
 from kubernetes_tpu_torch.ops.kernel_build import (
     KernelError,
     build_library,
     check_tensor as _check,
 )
 
-__all__ = ["KernelError", "build", "greedy_solve", "greedy_solve_cuda"]
+__all__ = [
+    "KernelError", "build", "greedy_solve", "greedy_solve_cuda", "plan_for",
+]
+
+_CHUNK = 32  # pods staged at once (csrc/greedy_solve.cu kChunk)
+
+
+def plan_for(n: int, r: int, cluster: int, static_bytes: int = 0) -> LaunchPlan:
+    """K1's launch plan for N rows of R dims on at most ``cluster`` CTAs.
+    A resident row holds alloc, req and nzr and one word of mask bits;
+    every CTA stages a chunk's pod requests, nzr, mask rows and flags
+    (csrc/greedy_solve.cu dynamic_smem_bytes)."""
+    return plan_launch(
+        n, cluster, node_bytes=4 * (2 * r + 3),
+        fixed_bytes=4 * _CHUNK * (r + 4), static_bytes=static_bytes,
+    )
 
 #: times the kernel library was built (or loaded) in this process --
 #: the cache watchdog's "compile" count
@@ -39,24 +64,37 @@ builds = 0
 launches = 0
 #: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
+#: the plan of the last launch
+last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+_static_bytes = 0
+#: clusters the card holds at once, per planned shape
+_admitted: dict = {}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process and source hash) and load the kernel
     library. Raises KernelError when nvcc fails."""
-    global _lib, builds
+    global _lib, builds, _static_bytes
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib, info = build_library("greedy_solve")
         fn = lib.greedy_solve_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p
         ]
+        lib.greedy_solve_max_clusters.restype = ctypes.c_int
+        lib.greedy_solve_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.greedy_solve_static_smem.restype = ctypes.c_int
+        lib.greedy_solve_static_smem.argtypes = [ctypes.c_int]
+        static = [lib.greedy_solve_static_smem(k) for k in (0, 1)]
+        if min(static) < 0:
+            raise KernelError("cannot read greedy_solve's attributes")
+        _static_bytes = max(static)
         last_build.update(info)
         builds += 1
         _lib = lib
@@ -71,7 +109,7 @@ def greedy_solve_cuda(
     operand must already be on the card with the kernel's dtypes: int32
     state and indices, bool masks. Returns fresh (assignment [B] int32,
     requested' [N, R], nzr' [N, 2]); the inputs are never written."""
-    global launches
+    global launches, last_plan
     device = allocatable.device
     if device.type != "cuda":
         raise KernelError(f"greedy_solve_cuda needs CUDA tensors, got {device}")
@@ -100,6 +138,7 @@ def greedy_solve_cuda(
         return asg, req_out, nzr_out
     lib = build()
     with torch.cuda.device(device):
+        plan = _plan(lib, n, r)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.greedy_solve_launch(
             *(t.data_ptr() for t in ops),
@@ -108,12 +147,22 @@ def greedy_solve_cuda(
             int(config.least_allocated_weight),
             int(config.balanced_allocation_weight),
             int(config.most_allocated_weight),
+            plan.cluster, plan.threads, int(plan.resident), plan.smem_bytes,
             stream,
         )
     if err != 0:
         raise KernelError(f"greedy_solve_kernel launch failed: cudaError {err}")
     launches += 1
+    last_plan = plan
     return asg, req_out, nzr_out
+
+
+def _plan(lib, n: int, r: int) -> LaunchPlan:
+    """The plan at the largest cluster the current card admits."""
+    return choose_plan(
+        lambda c: plan_for(n, r, c, _static_bytes),
+        card_admits(lib.greedy_solve_max_clusters, _admitted, torch.cuda.current_device()),
+    )
 
 
 def greedy_solve(

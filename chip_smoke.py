@@ -48,19 +48,25 @@ line is printed only when every phase passed):
    plus inactive padding); (b) four priorities x three request rows x
    eight candidate rows with 64 pre-existing nominations; (c) four
    PDBs, some at zero budget; (d) V=48 with R=6 (scalar dims), past the
-   TPU kernel's 32-victim cap. K3 is timed with CUDA events after a
-   warmup launch, the plain version with the host clock.
-4c. ``shard_kernel_vs_twin``: K4 against its plain PyTorch version on the
-   card, 256 pod steps per case, tolerance zero on (score, shard-local
-   index). Cases: (a) the mesh burst's shard shape (5,632 seeded rows
-   over 4 shards of 1,408, R=4, U=8, invalid rows); (b) R=6 with scalar
-   dims and all-zero pods; (c) pods with no feasible row, which must
-   give (-inf, 0); (d) a ragged split, 5,000 rows over 3 shards. K4 is
-   timed per launch (all shards of a pod step) with CUDA events after a
-   warmup launch, twice: queued behind a sleeping kernel (``ms``, the
-   kernel's own time) and paced by the host's enqueueing as the mesh
-   solve paces it (``host_paced_ms``); the plain version with the host
-   clock.
+   TPU kernel's 32-victim cap; (e) 40,000 nodes at V=16 with nominations
+   and PDBs. (a)-(c) keep the node slices in shared memory, (d) and (e)
+   stream them. K3 is timed with CUDA events after a warmup launch, the
+   plain version with the host clock; each record names the launch plan
+   as phase 3's do, and a cluster of one CTA fails the phase.
+4c. ``shard_kernel_vs_twin``: K4 against its plain PyTorch versions on
+   the card, tolerance zero. The step entry, 256 pod steps per case on
+   (score, shard-local index): (a) the mesh burst's shard shape (5,632
+   seeded rows over 4 shards of 1,408, R=4, U=8, invalid rows); (b) R=6
+   with scalar dims and all-zero pods; (c) pods with no feasible row,
+   which must give (-inf, 0); (d) a ragged split, 5,000 rows over 3
+   shards. Timed per launch (all shards of a pod step) with CUDA events,
+   queued behind a sleeping kernel (``ms``) and paced by the host
+   (``host_paced_ms``). The batch entry against ``mesh_batch_plain`` on
+   the assignment, req', nzr' and every active step's candidate columns:
+   the same four shapes at B=256, the mesh burst's full batch (B=4,096),
+   and 4 shards x 32,768 rows at B=512 (streaming); each record names
+   the launch plan (the CTAs' shards too), a cluster of one CTA fails the
+   phase, and launches are timed one by one on the same state.
 5. ``burst``: the main path end to end through the port's entry points,
    as bench.py builds it: APIServer, Client, InformerFactory,
    new_scheduler(batch=True, max_batch=4096) on the card, 5,000 nodes
@@ -102,9 +108,10 @@ line is printed only when every phase passed):
    ``new_scheduler(batch=True, max_batch=4096,
    mesh=NodeMesh(["cuda:0"] * 4))``: four shards of 1,408 rows on the
    one card. Asserts, beside the ``burst`` checks and the host-greedy
-   replay, that K4 launched at least once per measured pod and K1 never,
-   at most one full state upload and no carry divergence, and no K4
-   build during the burst. Prints K4's launches and the shard sizes too.
+   replay, that K4 launched exactly once per measured batch (one device
+   holds every shard: the batch entry) and K1 never, at most one full
+   state upload and no carry divergence, and no K4 build during the
+   burst. Prints K4's launches and the shard sizes too.
 9. ``mesh_mixed``: ``__graft_entry__.dryrun_multichip`` parts 1 and 1b on
    the same mesh: 512 nodes with plain, hard-spread, anti-affinity,
    preferred-affinity and gang pods (68 bound; the constrained batches
@@ -114,7 +121,8 @@ line is printed only when every phase passed):
    saturated by plain priority-0 pods that all bind through K4, whose
    high-priority burst preempts through K3 on the mesh's first device.
 10. ``kernels``: every ported kernel with its launches on the main path,
-   its time per launch, its plain version's time and its bound.
+   its time per launch, its plain version's time and its bound (K4: the
+   batch entry at the mesh burst's full batch).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -288,10 +296,11 @@ def homogeneous_problem(n, b, r, u):
     return [alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, active]
 
 
-def ptxas_report(mod, resident):
+def ptxas_report(mod, resident, want=None):
     """Registers and spill bytes ptxas reported for the kernel's resident
-    or streaming instantiation (the build's -Xptxas -v log)."""
-    want = "ILb1E" if resident else "ILb0E"
+    or streaming instantiation (the build's -Xptxas -v log), or for the
+    kernel whose mangled name holds ``want``."""
+    want = want or ("ILb1E" if resident else "ILb0E")
     out = {}
     current = None
     for line in mod.last_build.get("log", "").splitlines():
@@ -307,6 +316,9 @@ def ptxas_report(mod, resident):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out["smem"] = int(m.group(1))
     return out
 
 
@@ -394,20 +406,23 @@ MESH_SHARDS = 4
 SHARD_PODS = 256  # pod steps checked per case
 
 
-def shard_problem(seed, n, r, p, infeasible=False):
+def shard_problem(seed, n, r, p, infeasible=False, b=SHARD_PODS):
     """A seeded node state split over p shards of a p-device mesh on the
     card (ragged when p does not divide n), and a pod batch; with
     ``infeasible`` every pod asks for more than any node holds or points
-    at the all-False mask row."""
+    at the all-False mask row. Returns (host arrays, bounds, per-shard
+    tensors, pod tensors, active [B] bool on the card)."""
     from kubernetes_tpu_torch.ops.mesh import NodeMesh
 
-    host = random_problem(seed, n=n, b=SHARD_PODS, r=r, u=BURST_SHAPE["u"])
-    alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, _ = host
+    host = random_problem(seed, n=n, b=b, r=r, u=BURST_SHAPE["u"])
+    alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, active = host
     if infeasible:
         pod_req = pod_req.copy()
         midx = midx.copy()
         pod_req[0::2, 0] = 1 << 30  # no node has that much CPU
         midx[1::2] = rows.shape[0] - 1  # the all-False row
+        host = [alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx,
+                active]
     mesh = NodeMesh(["cuda:0"] * p)
     bounds = mesh.bounds(n)
     dev = torch.device("cuda:0")
@@ -423,15 +438,15 @@ def shard_problem(seed, n, r, p, infeasible=False):
         for lo, hi in bounds
     ]
     pods = (put(pod_req), put(pod_nzr), put(midx.astype(np.int32)))
-    return host, bounds, shards, pods
+    return host, bounds, shards, pods, put(active)
 
 
 def shard_bound(host, bounds, t):
-    """The least time one K4 launch (pod t over every shard) could take:
-    bytes each input read once (alloc, req, nzr, valid and the pod's one
-    mask row, the pod's rows) and each output written once, against the
-    operations of the rows the pod tests and scores (fit_ops, score_ops
-    counted from the kernel body, as for K1)."""
+    """The least time one K4 step launch (pod t over every shard) could
+    take: bytes each input read once (alloc, req, nzr, valid and the
+    pod's one mask row, the pod's rows) and each output written once,
+    against the operations of the rows the pod tests and scores
+    (fit_ops, score_ops counted from the kernel body, as for K1)."""
     alloc, requested, _, valid, pod_req, _, rows, midx, _ = host
     n, r = alloc.shape
     p = len(bounds)
@@ -451,17 +466,38 @@ def shard_bound(host, bounds, t):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
 
-def shard_kernel_vs_twin(sk):
-    cases = [
-        ("burst_shard_r4", 11, BURST_SHAPE["n"], 4, MESH_SHARDS, False),
-        ("scalar_r6", 12, BURST_SHAPE["n"], 6, MESH_SHARDS, False),
-        ("infeasible", 13, BURST_SHAPE["n"], 4, MESH_SHARDS, True),
-        ("ragged_5000_over_3", 14, N_NODES, 4, 3, False),
-    ]
+def shard_batch_bound(host, asg, p):
+    """The least time one K4 batch launch could take: K1's bytes (each
+    input read once, the assignment and req'/nzr' written once) plus the
+    per-shard candidates written, against the operations of the pairs
+    this run's data tests and scores (pair_counts, replayed with the
+    kernel's checked assignments)."""
+    alloc, _, _, _, pod_req, _, rows, _, _ = host
+    n, r = alloc.shape
+    b, u = pod_req.shape[0], rows.shape[0]
+    n_bytes = kernel_bytes(n, b, r, u) + 8 * b * p
+    tested, scored = pair_counts(host, asg)
+    ops = tested * fit_ops(r) + scored * score_ops(1, 1, 0)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+SHARD_CASES = [
+    ("burst_shard_r4", 11, BURST_SHAPE["n"], 4, MESH_SHARDS, False),
+    ("scalar_r6", 12, BURST_SHAPE["n"], 6, MESH_SHARDS, False),
+    ("infeasible", 13, BURST_SHAPE["n"], 4, MESH_SHARDS, True),
+    ("ragged_5000_over_3", 14, N_NODES, 4, 3, False),
+]
+
+
+def shard_step_cases(sk):
+    """K4's step entry: SHARD_PODS pod steps per case, each one launch
+    over every shard, against shard_candidate_plain per shard."""
     timing = None
     max_err = 0.0
-    for name, seed, n, r, p, infeasible in cases:
-        host, bounds, shards, pods = shard_problem(seed, n, r, p, infeasible)
+    for name, seed, n, r, p, infeasible in SHARD_CASES:
+        host, bounds, shards, pods, _ = shard_problem(seed, n, r, p, infeasible)
         cols = [list(x) for x in zip(*shards)]
         cands = sk.ShardCandidates(*cols, *pods)
         torch.cuda.synchronize()
@@ -489,7 +525,7 @@ def shard_kernel_vs_twin(sk):
         max_err = max(max_err, err)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        # paced by the host: each launch is enqueued as the mesh solve
+        # paced by the host: each launch is enqueued as the step route
         # enqueues it, and a launch this short may wait on the next one
         start.record()
         for t in range(SHARD_PODS):
@@ -509,9 +545,15 @@ def shard_kernel_vs_twin(sk):
         ms = start.elapsed_time(end) / SHARD_PODS
         none_feasible = int((~torch.isfinite(p_score)).all(dim=1).sum())
         bound_ms, bound_by = shard_bound(host, bounds, 0)
+        ptxas = ptxas_report(sk, False, want="shard_candidate_kernel")
         rec = dict(
-            case=name, n=n, r=r, shards=p, n_loc=[hi - lo for lo, hi in bounds],
-            pods=SHARD_PODS, equal=equal, max_abs_err=err,
+            entry="step", case=name, n=n, r=r, shards=p,
+            n_loc=[hi - lo for lo, hi in bounds], pods=SHARD_PODS,
+            # no cluster: one block of 1,024 threads per shard per launch
+            blocks=p, threads=1024, side="device memory",
+            smem_bytes_per_cta=ptxas.get("smem"), ptxas=ptxas,
+            us_per_pod_step=ms * 1e3,
+            equal=equal, max_abs_err=err,
             pods_with_no_feasible_row=none_feasible,
             empty_candidates_are_minus_inf_0=bool(
                 (k_index[~torch.isfinite(k_score)] == 0).all()
@@ -527,6 +569,163 @@ def shard_kernel_vs_twin(sk):
         if name == "burst_shard_r4":
             timing = rec
     return timing, max_err
+
+
+def mesh_step_route(sk, p, shards, pods, active, plain, batch):
+    """The route of a mesh over several devices, run on the card over the
+    one-device work list of ``p`` shards (assignment._mesh_step_loop:
+    per active pod one K4 step launch, then the torch combine and bump).
+    Holds its assignment, req', nzr' and every active step's candidate
+    columns bit-equal to ``plain`` (mesh_batch_plain's outputs on the
+    same inputs) and to ``batch`` (the batch entry's), and its K4
+    launches to one per active pod."""
+    from kubernetes_tpu_torch.ops import assignment as asg_mod
+    from kubernetes_tpu_torch.ops.mesh import NodeMesh
+
+    mesh = NodeMesh(["cuda:0"] * p)
+    alloc, req0, nzr0, valid, rows = [list(x) for x in zip(*shards)]
+    work, score, index = asg_mod._mesh_work(
+        mesh, alloc, req0, nzr0, valid, rows, [pods], asg_mod.GreedyConfig())
+    act = active.cpu().numpy()
+    before = sk.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asg = asg_mod._mesh_step_loop(mesh, work, score, index, act)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = sk.launches - before
+    w = work[0]
+    n = w.views[-1][1]  # the working buffers' last row is scratch
+    got = (asg, w.req[:n], w.nzr[:n], score[active], index[active])
+    names = ("assignment", "req", "nzr", "score", "index")
+    rec = dict(
+        n_active=int(act.sum()), launches=launches, host_ms=ms,
+        host_us_per_pod_step=ms * 1e3 / max(int(act.sum()), 1),
+        equal_plain={nm: bool(torch.equal(x, y))
+                     for nm, x, y in zip(names, got, plain)},
+        equal_batch={nm: bool(torch.equal(x, y))
+                     for nm, x, y in zip(names, got, batch)},
+    )
+    if not (all(rec["equal_plain"].values())
+            and all(rec["equal_batch"].values())):
+        raise AssertionError("the mesh step route disagrees with K4's batch "
+                             "entry or its plain version")
+    if launches != rec["n_active"]:
+        raise AssertionError(
+            f"the step route made {launches} K4 launches for "
+            f"{rec['n_active']} active pods")
+    return rec
+
+
+def shard_batch_cases(sk):
+    """K4's batch entry: the step cases' shapes as whole-batch launches
+    at B=SHARD_PODS, the mesh burst's full batch (B=4,096), and 4 shards
+    x 32,768 rows at B=512, above the resident gate. Each holds the
+    assignment, req', nzr' and every active step's candidate columns
+    bit-equal to mesh_batch_plain on the same inputs."""
+    cases = [(nm, seed, n, r, p, inf, SHARD_PODS)
+             for nm, seed, n, r, p, inf in SHARD_CASES]
+    cases += [
+        ("mesh_burst_batch", 15, BURST_SHAPE["n"], 4, MESH_SHARDS, False,
+         MAX_BATCH),
+        ("above_resident_gate", 16, 4 * 32768, 4, MESH_SHARDS, False, 512),
+    ]
+    timing = None
+    max_err = 0.0
+    for name, seed, n, r, p, infeasible, b in cases:
+        host, bounds, shards, pods, active = shard_problem(
+            seed, n, r, p, infeasible, b=b)
+        alloc, req0, nzr0, valid, rows = [list(x) for x in zip(*shards)]
+
+        def fresh():
+            return [q.clone() for q in req0], [z.clone() for z in nzr0]
+
+        k_req, k_nzr = fresh()
+        cands = sk.ShardCandidates(alloc, k_req, k_nzr, valid, rows, *pods)
+        torch.cuda.synchronize()
+        k_asg = cands.batch(active)
+        torch.cuda.synchronize()
+        p_req, p_nzr = fresh()
+        t0 = time.perf_counter()
+        p_asg, p_score, p_index = sk.mesh_batch_plain(
+            alloc, p_req, p_nzr, valid, rows, *pods, active)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        act = active
+        pairs = [
+            ("assignment", k_asg, p_asg),
+            ("req", torch.cat(k_req), torch.cat(p_req)),
+            ("nzr", torch.cat(k_nzr), torch.cat(p_nzr)),
+            ("score", cands.score[act], p_score[act]),
+            ("index", cands.index[act], p_index[act]),
+        ]
+        equal = {nm: bool(torch.equal(x, y)) for nm, x, y in pairs}
+        err = 0.0
+        for nm, x, y in pairs:
+            if nm == "score":
+                finite = torch.isfinite(x) & torch.isfinite(y)
+                d = (x - y)[finite].abs()
+            else:
+                d = (x.long() - y.long()).abs()
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        max_err = max(max_err, err)
+        # time launches on the same state: req/nzr are restored between
+        # launches, outside the events
+        reps = 5
+        times = []
+        for _ in range(reps):
+            for q, q0 in zip(k_req, req0):
+                q.copy_(q0)
+            for z, z0 in zip(k_nzr, nzr0):
+                z.copy_(z0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cands.batch(active)
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in times) / reps
+        k_host = k_asg.cpu().numpy()
+        bound_ms, bound_by = shard_batch_bound(host, k_host, p)
+        n_active = int(active.sum())
+        rec = dict(
+            entry="batch", case=name, n=n, r=r, shards=p, b=b,
+            active=n_active, n_loc=[hi - lo for lo, hi in bounds],
+            equal=equal, max_abs_err=err,
+            placed=int((k_host >= 0).sum()),
+            pods_with_no_feasible_row=int(
+                (~torch.isfinite(p_score[act])).all(dim=1).sum()),
+            empty_candidates_are_minus_inf_0=bool(
+                (cands.index[act][~torch.isfinite(cands.score[act])] == 0).all()
+            ),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            cta_shards=list(sk.last_plan.shards),
+            **plan_record(sk, n_active, ms),
+        )
+        if name == "mesh_burst_batch":
+            rec["step_route"] = mesh_step_route(
+                sk, p, shards, pods, active,
+                plain=[y for _, _, y in pairs],
+                batch=[k_asg, torch.cat(k_req), torch.cat(k_nzr),
+                       cands.score[act], cands.index[act]],
+            )
+        emit("shard_kernel_vs_twin", **rec)
+        if not all(equal.values()) or not rec["empty_candidates_are_minus_inf_0"]:
+            raise AssertionError(f"K4's batch entry disagrees with its twin on {name}")
+        if rec["cluster"] < 2:
+            raise AssertionError(f"{name} launched a cluster of one CTA")
+        if infeasible and rec["pods_with_no_feasible_row"] == 0:
+            raise AssertionError("the infeasible case has a feasible pod")
+        if name == "mesh_burst_batch":
+            timing = rec
+    return timing, max_err
+
+
+def shard_kernel_vs_twin(sk):
+    step, step_err = shard_step_cases(sk)
+    batch, batch_err = shard_batch_cases(sk)
+    return step, batch, max(step_err, batch_err)
 
 
 # -- phase 4: the constrained kernel vs its twin ------------------------------
@@ -1285,36 +1484,36 @@ def preempt_problem(seed, n=N_NODES, v=16, r=4, b=PREEMPT_WAVE, pad=8,
 
 def k3_operations(host, chosen):
     """The operations this run's data needs, counted from K3's body
-    (csrc/preempt_solve.cu): per class, every node's key build; per
-    active pod, one compare per node for the argmin and the chosen
-    node's key build. A node's key build: 2 compares per nomination, 2
-    per victim slot to find the eligible ones, per eligible victim R
-    subtractions to remove it, 2P for its budgets and a reprieve fit
-    (R adds, 3R+1 for the fit test), 3R+1 for the first fit, and 6 per
-    victim slot for the key. Replays the carry with the kernel's own
-    (checked) choices, in numpy."""
+    (csrc/preempt_solve.cu): per class of active pods, the nomination
+    fold (a node and a priority compare per nomination, R adds for each
+    that lands) and every node's key build; per active pod, one compare
+    per node for the minimum and the chosen node's key build. A node's
+    key build: R adds for its nomination addend, 2 per victim slot to find
+    the eligible ones, per eligible victim R subtractions to remove it,
+    2P for its budgets and a reprieve fit (R adds, 3R+1 for the fit
+    test), 3R+1 for the first fit, and 6 per victim slot for the key.
+    Replays the carry with the kernel's own (checked) choices, in numpy."""
     (alloc, base, prio, _, req, active, pdb_match, _, _, nom_prio, _,
      pods_req, pods_prio, _, cand_index, pods_active) = host
     n, v = prio.shape
     r = alloc.shape[1]
     p = pdb_match.shape[2]
-    m = nom_prio.shape[0]
 
     def node_ops(elig):
-        return 2 * m + 8 * v + elig * (r + 2 * p + 4 * r + 1) + 3 * r + 1
+        return r + 8 * v + elig * (r + 2 * p + 4 * r + 1) + 3 * r + 1
 
     ops = 0
     prev = None
-    for t in range(len(pods_prio)):
+    for t in np.flatnonzero(pods_active):
         cls = (int(pods_prio[t]), int(cand_index[t]), pods_req[t].tobytes())
         elig = (active & (prio < pods_prio[t])).sum(axis=1)
         if cls != prev:
-            ops += int(node_ops(elig).sum())
+            landed = int((nom_prio >= pods_prio[t]).sum())
+            ops += 2 * len(nom_prio) + r * landed + int(node_ops(elig).sum())
             prev = cls
-        if pods_active[t]:
-            ops += 2 * n
-            if chosen[t] >= 0:
-                ops += int(node_ops(elig[chosen[t]]))
+        ops += 2 * n
+        if chosen[t] >= 0:
+            ops += int(node_ops(elig[chosen[t]]))
     return ops
 
 
@@ -1324,6 +1523,9 @@ def preempt_kernel_vs_twin(pk, pre_mod):
         ("classes_nominations", dict(seed=1, b=512, classes=True, m=64)),
         ("pdbs", dict(seed=2, b=512, classes=True, p=4)),
         ("v48_scalar_r6", dict(seed=3, b=512, v=48, r=6, classes=True)),
+        # 40,000 nodes at V=16: above what 16 CTAs hold in shared memory
+        ("above_resident_gate", dict(seed=4, n=40000, b=128, classes=True,
+                                     m=64, p=2)),
     ]
     timing = None
     max_err = 0.0
@@ -1375,10 +1577,13 @@ def preempt_kernel_vs_twin(pk, pre_mod):
             ms=ms, plain_ms=plain_ms, ops=ops, bytes=n_bytes,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms > ops_ms else "operations",
+            **plan_record(pk, int(host[15].sum()), ms),
         )
         emit("preempt_kernel_vs_twin", **rec)
         if not all(equal.values()):
             raise AssertionError(f"K3 disagrees with its twin on {name}")
+        if rec["cluster"] < 2:
+            raise AssertionError(f"{name} launched a cluster of one CTA")
         if rec["placed"] == 0:
             raise AssertionError(f"{name}: the wave placed no preemptor")
         if name == "preemption5000_wave":
@@ -1857,7 +2062,7 @@ def burst(gk, device=None, mesh=None, sk=None):
     """SchedulingBasic through the entry points (the ``burst`` phase); with
     ``mesh`` (a NodeMesh) and ``sk`` (the K4 module) the ``mesh_burst``
     phase: the same burst on the node-sharded tier, where every measured
-    pod step launches K4 and K1 never launches."""
+    batch is one K4 launch and K1 never launches."""
     from kubernetes_tpu_torch.apiserver.server import APIServer
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.informer import InformerFactory
@@ -2011,10 +2216,11 @@ def burst(gk, device=None, mesh=None, sk=None):
     if any(p["tier"] != tier for p in dispatched):
         raise AssertionError("a burst dispatch was solved off the card")
     if mesh is not None:
-        if tier == "cuda" and (k4_launches < N_PODS or launches != 0):
+        # one device holds every shard: ONE K4 launch per greedy batch
+        if tier == "cuda" and (k4_launches != len(dispatched) or launches != 0):
             raise AssertionError(
                 f"the mesh burst launched K4 {k4_launches} times for "
-                f"{N_PODS} pods and K1 {launches} times"
+                f"{len(dispatched)} batches and K1 {launches} times"
             )
         if sched.mesh_solver_tier != tier:
             raise AssertionError(f"the mesh solved on {sched.mesh_solver_tier!r}")
@@ -2123,7 +2329,7 @@ def main():
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
     c_timing, c_max_err = constrained_kernel_vs_twin(ck, asg_mod)
     p_timing, p_max_err = preempt_kernel_vs_twin(pk, pre_mod)
-    s_timing, s_max_err = shard_kernel_vs_twin(sk)
+    _, s_timing, s_max_err = shard_kernel_vs_twin(sk)
     rec = burst(gk)
     rows = constrained_bursts(ck)
     pre = preemption_burst(pk, gk)

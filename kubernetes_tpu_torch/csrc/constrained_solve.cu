@@ -899,52 +899,6 @@ __global__ void __launch_bounds__(kClusterThreads, 1) constrained_cluster_kernel
   cluster_barrier();
 }
 
-template <bool kResident>
-cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                      int cluster, int threads, int smem) {
-  auto kernel = constrained_cluster_kernel<kResident>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cluster, 1, 1);
-  cfg->blockDim = dim3(threads, 1, 1);
-  cfg->dynamicSmemBytes = smem;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-template <bool kResident>
-int max_clusters(int cluster, int threads, int smem) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = configure<kResident>(&cfg, &attr, cluster, threads, smem);
-  int count = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveClusters(
-        &count, constrained_cluster_kernel<kResident>, &cfg);
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused configuration admits no cluster
-    return 0;
-  }
-  return count;
-}
-
-bool valid_shape(int cluster, int threads) {
-  // at least one row warp beside the parameter warp
-  return cluster >= 1 && cluster <= kMaxCluster && threads >= 64 &&
-         threads <= kClusterThreads && threads % 32 == 0;
-}
-
 }  // namespace
 
 #ifdef SOLVE_STEP_PROFILE
@@ -955,23 +909,20 @@ extern "C" int constrained_solve_step_cycles(unsigned long long* out) {
 
 // static shared memory of one CTA of the kernel, or -1
 extern "C" int constrained_solve_static_smem(int resident) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = resident
-      ? cudaFuncGetAttributes(&attr, constrained_cluster_kernel<true>)
-      : cudaFuncGetAttributes(&attr, constrained_cluster_kernel<false>);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
-  return static_cast<int>(attr.sharedSizeBytes);
+  return resident ? static_smem_bytes(constrained_cluster_kernel<true>)
+                  : static_smem_bytes(constrained_cluster_kernel<false>);
 }
+
+// at least one row warp beside the parameter warp
+constexpr int kMinThreads = 64;
 
 // how many clusters of this shape the card can hold at once (0: none)
 extern "C" int constrained_solve_max_clusters(int cluster, int threads,
                                               int smem, int resident) {
-  if (!valid_shape(cluster, threads)) return 0;
-  return resident ? max_clusters<true>(cluster, threads, smem)
-                  : max_clusters<false>(cluster, threads, smem);
+  if (!valid_cluster_shape(cluster, threads, kMinThreads)) return 0;
+  return resident
+      ? cluster_occupancy(constrained_cluster_kernel<true>, cluster, threads, smem)
+      : cluster_occupancy(constrained_cluster_kernel<false>, cluster, threads, smem);
 }
 
 // ptrs: kNumPtrs device pointers in Ptrs order; dims: kNumDims ints in Dims
@@ -996,19 +947,12 @@ extern "C" int constrained_solve_launch(
       d.rt > kMaxAffRows || d.re > kMaxExistRows || d.rp > kMaxIpaRows ||
       d.z > kMaxZones || d.z < 1 || d.s < 1 || d.u < 1 || d.n < 1 ||
       d.r < 2 || (d.k < 1 && d.ra + d.rt + d.re > 0) ||
-      !valid_shape(cluster, threads) || cluster > d.n ||
+      !valid_cluster_shape(cluster, threads, kMinThreads) || cluster > d.n ||
       static_cast<size_t>(smem) < dynamic_smem_bytes(d.n, d.r, cluster, resident)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = resident
-      ? configure<true>(&cfg, &attr, cluster, threads, smem)
-      : configure<false>(&cfg, &attr, cluster, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  err = resident ? cudaLaunchKernelEx(&cfg, constrained_cluster_kernel<true>, p, d)
-                 : cudaLaunchKernelEx(&cfg, constrained_cluster_kernel<false>, p, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return resident
+      ? launch_cluster(constrained_cluster_kernel<true>, cluster, threads, smem, st, p, d)
+      : launch_cluster(constrained_cluster_kernel<false>, cluster, threads, smem, st, p, d);
 }

@@ -1,8 +1,10 @@
 // Device helpers shared by the greedy (K1), constrained (K2), preemption
-// (K3) and shard-candidate (K4) kernels: the fit test, the resource
-// score, the (score, index) argmax step, a block-wide minimum of a
-// struct key, and the cluster step of K1 and K2 (a (score, index)
-// argmax over a thread-block cluster through distributed shared memory).
+// (K3) and mesh (K4) kernels: the fit test, the resource score, the
+// (score, index) argmax step, the staging of a chunk of pods, the cluster
+// step of K1, K2 and K4's batch entry (a (score, index) argmax over a
+// thread-block cluster through distributed shared memory), the greedy
+// batch loop that K1 and K4's batch entry share, and the host side of
+// launching one cluster.
 // Each matches its plain PyTorch version in ops/assignment.py and
 // ops/scores.py op for op: every float op is an explicit round-to-nearest
 // intrinsic, so nvcc never contracts a multiply-add into an FMA (the
@@ -21,7 +23,9 @@ namespace solve {
 // Step-phase cycle counters for tools/step_profile.py, compiled only with
 // -DSOLVE_STEP_PROFILE (every mark is empty otherwise): thread 0 of CTA 0
 // adds the clock64 cycles since its previous mark to counter i. A kernel
-// opens with STEP_START() and reads `rank` and `tid` in scope.
+// opens with STEP_START() and reads `rank` and `tid` in scope. STEP_TIME
+// starts a clock in any thread and STEP_ADD(i, ...) adds the cycles since
+// it to counter i (for a phase that thread 0 of CTA 0 does not run).
 #ifdef SOLVE_STEP_PROFILE
 __device__ unsigned long long g_step_cycles[16];
 #define STEP_START() unsigned long long step_t_ = clock64()
@@ -33,6 +37,8 @@ __device__ unsigned long long g_step_cycles[16];
       step_t_ = now_;                                        \
     }                                                        \
   } while (0)
+#define STEP_TIME(name) const unsigned long long name = clock64()
+#define STEP_ADD(i, name) atomicAdd(&solve::g_step_cycles[i], clock64() - (name))
 
 // copy the counters out and zero them (host)
 inline int read_step_cycles(unsigned long long* out) {
@@ -52,6 +58,12 @@ inline int read_step_cycles(unsigned long long* out) {
   } while (0)
 #define STEP_MARK(i) \
   do {               \
+  } while (0)
+#define STEP_TIME(name) \
+  do {                  \
+  } while (0)
+#define STEP_ADD(i, name) \
+  do {                    \
   } while (0)
 #endif
 
@@ -191,53 +203,83 @@ __device__ __forceinline__ int block_argmax(
   return block_best(best, best_i, s_score, s_index).index;
 }
 
-// __shfl_down_sync / __shfl_sync of a trivially copyable struct, word by word
-template <class T>
-__device__ __forceinline__ T shfl_down_words(T v, int off) {
-  static_assert(sizeof(T) % sizeof(int) == 0, "shuffle whole 32-bit words");
-  int w[sizeof(T) / sizeof(int)];
-  memcpy(w, &v, sizeof(T));
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T) / sizeof(int)); ++i) {
-    w[i] = __shfl_down_sync(0xffffffffu, w[i], off);
-  }
-  memcpy(&v, w, sizeof(T));
-  return v;
+// -- a chunk of pods staged in shared memory (K1, K4's batch entry) ---------
+
+constexpr int kChunk = 32;  // pods staged at once: one bit each per row
+
+// a chunk's pod parameters in shared memory: request [kChunk][R], nzr
+// [kChunk][2], mask row, flags (bit 0 active, bit 1 all-zero request)
+struct PodChunk {
+  int* req;
+  int* nzr;
+  int* midx;
+  int* flags;
+};
+
+// int32 words of a PodChunk
+__host__ __device__ __forceinline__ size_t pod_chunk_words(int r) {
+  return static_cast<size_t>(kChunk) * (r + 4);
 }
 
-template <class T>
-__device__ __forceinline__ T shfl_words(T v, int src) {
-  int w[sizeof(T) / sizeof(int)];
-  memcpy(w, &v, sizeof(T));
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T) / sizeof(int)); ++i) {
-    w[i] = __shfl_sync(0xffffffffu, w[i], src);
-  }
-  memcpy(&v, w, sizeof(T));
-  return v;
+__device__ __forceinline__ PodChunk pod_chunk_at(int* base, int r) {
+  PodChunk c;
+  c.req = base;
+  c.nzr = c.req + kChunk * r;
+  c.midx = c.nzr + kChunk * 2;
+  c.flags = c.midx + kChunk;
+  return c;
 }
 
-// block-wide minimum of a key under a strict total order `less` (a key
-// that carries a unique index makes the result independent of the
-// reduction order). Every thread passes its own key and gets the block's
-// minimum back. s_warp is a kWarps-long shared array. Contains
-// __syncthreads(): call from every thread of the block.
-template <class T, class Less>
-__device__ __forceinline__ T block_min(T v, T* s_warp, Less less) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = shfl_down_words(v, off);
-    if (less(o, v)) v = o;
+// stage pods [t0, t0 + kChunk) of a batch of b (past b: inactive). Call
+// from every thread of the CTA between two __syncthreads().
+__device__ __forceinline__ void stage_pod_chunk(
+    const PodChunk& c, const int* pod_req, const int* pod_nzr,
+    const int* midx, const uint8_t* active, int t0, int b, int r, int u) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int steps = min(kChunk, b - t0);
+  for (int i = tid; i < steps * r; i += nt) {
+    c.req[i] = pod_req[static_cast<size_t>(t0) * r + i];
   }
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  v = s_warp[lane];  // kWarps == 32: one slot per lane
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = shfl_down_words(v, off);
-    if (less(o, v)) v = o;
+  for (int i = tid; i < kChunk; i += nt) {
+    const int p = t0 + i;
+    int flags = 0;
+    int m = 0;
+    int z0 = 0;
+    int z1 = 0;
+    if (p < b) {
+      flags = (active[p] ? 1 : 0) |
+              (pod_all_zero(pod_req + static_cast<size_t>(p) * r, r) ? 2 : 0);
+      m = midx[p];
+      m = m < 0 ? 0 : (m >= u ? u - 1 : m);  // gathers clamp, as in JAX
+      z0 = pod_nzr[p * 2];
+      z1 = pod_nzr[p * 2 + 1];
+    }
+    c.flags[i] = flags;
+    c.midx[i] = m;
+    c.nzr[i * 2] = z0;
+    c.nzr[i * 2 + 1] = z1;
   }
-  return shfl_words(v, 0);
+}
+
+// valid AND the chunk's mask rows, one bit per pod, for the rows [lo, lo
+// + len) of an n-column mask ([U, n] rows, [n] valid): s_bits[l] holds
+// row lo + l's bits, each written and later read by the thread that
+// owns the row.
+__device__ __forceinline__ void chunk_mask_bits(
+    unsigned* s_bits, const uint8_t* valid, const uint8_t* rows, int n,
+    int lo, int len, const int* s_pmidx) {
+  for (int l = threadIdx.x; l < len; l += blockDim.x) {
+    const size_t j = static_cast<size_t>(lo + l);
+    unsigned bits = 0u;
+    if (valid[j]) {
+#pragma unroll 8
+      for (int i = 0; i < kChunk; ++i) {
+        if (rows[static_cast<size_t>(s_pmidx[i]) * n + j]) bits |= 1u << i;
+      }
+    }
+    s_bits[l] = bits;
+  }
 }
 
 // -- the cluster step (K1, K2) ----------------------------------------------
@@ -369,6 +411,271 @@ __device__ __forceinline__ unsigned long long cluster_best(
 // slice_lo(rank + 1)) (ops/cluster_plan.slice_bounds)
 __device__ __forceinline__ int slice_lo(int rank, int cluster, int n) {
   return static_cast<int>(static_cast<long long>(rank) * n / cluster);
+}
+
+// -- the greedy batch over a cluster (K1, K4's batch entry) -----------------
+//
+// A CTA's share of a greedy batch solve: thread i owns the rows lo + i,
+// lo + i + threads, ... of the CTA's slice [lo, hi) of a view of node
+// rows (K1: all N rows; K4: one shard), view row j being the cluster-wide
+// index off + j. Per active pod t: each thread scores its own rows, one
+// cluster step (cluster_publish / cluster_collect, slots alternating by
+// step parity) gives every thread the winner (max score, then min
+// cluster-wide index), `on_step(t, slots)` runs in every thread, and the
+// thread that owns the winner bumps its own copy with no barrier.
+//   resident  (template flag): the slice's alloc / req / nzr columns live
+//             in shared memory for the launch, loaded once and written to
+//             req_out / nzr_out once at the end; per chunk of 32 pods each
+//             thread folds valid AND the pods' mask rows into one 32-bit
+//             word per row, so a step reads no device memory.
+//   streaming the state is read from and bumped in req_out / nzr_out, the
+//             mask row read from device memory (L2).
+// The pods' parameters are staged 32 at a time, behind two CTA barriers
+// per chunk. An inactive pod is a skip that every CTA takes alike.
+
+// dynamic shared memory of one CTA: the chunk's pod parameters, then
+// (resident) alloc [R][cap], req [R][cap], nzr [2][cap] and mask bits
+// [cap] (ops/greedy_kernel.py plan_for, ops/shard_kernel.py
+// plan_for_batch)
+inline size_t greedy_smem_bytes(int r, int cap, bool resident) {
+  size_t ints = pod_chunk_words(r);
+  if (resident) ints += static_cast<size_t>(cap) * (2 * r + 3);
+  return ints * sizeof(int);
+}
+
+struct GreedyRows {
+  const int* alloc;      // [n, R]
+  const int* req_in;     // [n, R]
+  int* req_out;          // [n, R]; (req_out, nzr_out) may be (req_in,
+  const int* nzr_in;     // [n, 2]   nzr_in): updated in place
+  int* nzr_out;          // [n, 2]
+  const uint8_t* valid;  // [n]
+  const uint8_t* rows;   // [U, n] the view's mask columns
+  int n;                 // the view's rows
+  int lo, hi;            // this CTA's slice of them
+  int off;               // view row j is cluster-wide index off + j
+  int cap;               // the largest CTA slice: the resident stride
+};
+
+struct GreedyPods {
+  const int* pod_req;     // [B, R]
+  const int* pod_nzr;     // [B, 2]
+  const int* midx;        // [B]
+  const uint8_t* active;  // [B]
+  int* asg;               // [B] out: the winner's cluster-wide index or -1
+  int r, b, u;
+  int w_least, w_balanced, w_most;
+};
+
+using ClusterSlots = unsigned long long[kMaxCluster * kClusterWarps];
+
+// The whole batch; call from every thread of every CTA of the cluster
+// (s_dyn: greedy_smem_bytes of dynamic shared memory; s_slots: a static
+// shared array, the same in every CTA). Ends with a cluster barrier.
+template <bool kResident, class OnStep>
+__device__ __forceinline__ void greedy_cluster_solve(
+    const GreedyRows& v, const GreedyPods& a, int* s_dyn,
+    ClusterSlots* s_slots, int cluster, int rank, OnStep on_step) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int r = a.r;
+  const int lo = v.lo;
+  const int len = v.hi - v.lo;
+  const int cap = v.cap;
+  const PodChunk chunk = pod_chunk_at(s_dyn, r);
+  int* s_alloc = s_dyn + pod_chunk_words(r);  // [R][cap]  (resident)
+  int* s_req = s_alloc + r * cap;             // [R][cap]
+  int* s_nzr = s_req + r * cap;               // [2][cap]
+  unsigned* s_bits = reinterpret_cast<unsigned*>(s_nzr + 2 * cap);  // [cap]
+
+  if (kResident || v.req_out != v.req_in) {
+    for (int l = tid; l < len; l += nt) {
+      const size_t j = static_cast<size_t>(lo + l);
+      for (int d = 0; d < r; ++d) {
+        if (kResident) {
+          s_alloc[d * cap + l] = v.alloc[j * r + d];
+          s_req[d * cap + l] = v.req_in[j * r + d];
+        } else {
+          v.req_out[j * r + d] = v.req_in[j * r + d];
+        }
+      }
+      if (kResident) {
+        s_nzr[l] = v.nzr_in[j * 2];
+        s_nzr[cap + l] = v.nzr_in[j * 2 + 1];
+      } else {
+        v.nzr_out[j * 2] = v.nzr_in[j * 2];
+        v.nzr_out[j * 2 + 1] = v.nzr_in[j * 2 + 1];
+      }
+    }
+  }
+  // every CTA of the cluster is running before any store into its slots
+  cluster_barrier();
+
+  const int stride = kResident ? cap : 1;
+  int phase = 0;
+  STEP_START();
+  for (int t0 = 0; t0 < a.b; t0 += kChunk) {
+    const int steps = min(kChunk, a.b - t0);
+    __syncthreads();  // the previous chunk's readers are done
+    stage_pod_chunk(chunk, a.pod_req, a.pod_nzr, a.midx, a.active, t0, a.b,
+                    r, a.u);
+    __syncthreads();
+    if (kResident) {  // valid AND the chunk's mask rows, one bit per pod
+      chunk_mask_bits(s_bits, v.valid, v.rows, v.n, lo, len, chunk.midx);
+    }
+
+    STEP_MARK(0);  // chunk staging
+    for (int i = 0; i < steps; ++i) {
+      const int t = t0 + i;
+      const int flags = chunk.flags[i];
+      // an inactive (padding or gang-masked) pod places nowhere and
+      // changes nothing: every CTA skips its step alike
+      if (!(flags & 1)) {
+        if (rank == 0 && tid == 0) a.asg[t] = -1;
+        continue;
+      }
+      const int* preq = chunk.req + i * r;
+      const int p0 = chunk.nzr[i * 2];
+      const int p1 = chunk.nzr[i * 2 + 1];
+      const bool all_zero = flags & 2;
+      const uint8_t* mrow = v.rows + static_cast<size_t>(chunk.midx[i]) * v.n;
+
+      STEP_MARK(1);  // the last step's bump, this step's parameters
+      float best = -INFINITY;
+      int best_j = kNoIndex;
+      for (int l = tid; l < len; l += nt) {
+        const int j = lo + l;
+        const bool ok = kResident ? ((s_bits[l] >> i) & 1u) != 0u
+                                  : (v.valid[j] && mrow[j]);
+        if (!ok) continue;
+        const int* al = kResident ? s_alloc + l : v.alloc + static_cast<size_t>(j) * r;
+        const int* q = kResident ? s_req + l : v.req_out + static_cast<size_t>(j) * r;
+        if (!fits_node_strided(al, q, stride, preq, r, all_zero)) continue;
+        const int n0 = kResident ? s_nzr[l] : v.nzr_out[j * 2];
+        const int n1 = kResident ? s_nzr[cap + l] : v.nzr_out[j * 2 + 1];
+        const float score = combined_score(
+            static_cast<float>(al[0]), static_cast<float>(al[stride]),
+            static_cast<float>(add_wrap(n0, p0)),
+            static_cast<float>(add_wrap(n1, p1)),
+            a.w_least, a.w_balanced, a.w_most);
+        if (score > best) {  // a thread's rows ascend: the first max is kept
+          best = score;
+          best_j = j;
+        }
+      }
+      STEP_MARK(2);  // scoring this thread's rows
+      unsigned long long* slots = s_slots[phase & 1];
+      cluster_publish(
+          pack_best(best, best_j == kNoIndex ? kNoIndex : v.off + best_j),
+          slots, cluster, rank);
+      const int win = best_index(cluster_collect(slots, cluster));
+      STEP_MARK(3);  // the cluster step
+      ++phase;
+      on_step(t, static_cast<const unsigned long long*>(slots));
+      if (rank == 0 && tid == 0) a.asg[t] = win == kNoIndex ? -1 : win;
+      const int wl = win - v.off - lo;  // the winner's row in this slice
+      if (win != kNoIndex && wl >= 0 && wl < len && wl % nt == tid) {
+        const size_t j = static_cast<size_t>(lo + wl);
+        int* q = kResident ? s_req + wl : v.req_out + j * r;
+        for (int d = 0; d < r; ++d) q[d * stride] = add_wrap(q[d * stride], preq[d]);
+        if (kResident) {
+          s_nzr[wl] = add_wrap(s_nzr[wl], p0);
+          s_nzr[cap + wl] = add_wrap(s_nzr[cap + wl], p1);
+        } else {
+          v.nzr_out[j * 2] = add_wrap(v.nzr_out[j * 2], p0);
+          v.nzr_out[j * 2 + 1] = add_wrap(v.nzr_out[j * 2 + 1], p1);
+        }
+      }
+    }
+  }
+
+  if (kResident) {
+    for (int l = tid; l < len; l += nt) {
+      const size_t j = static_cast<size_t>(lo + l);
+      for (int d = 0; d < r; ++d) v.req_out[j * r + d] = s_req[d * cap + l];
+      v.nzr_out[j * 2] = s_nzr[l];
+      v.nzr_out[j * 2 + 1] = s_nzr[cap + l];
+    }
+  }
+  // no CTA leaves while another may still store into its shared memory
+  cluster_barrier();
+}
+
+// -- launching ONE cluster (host) -------------------------------------------
+
+// a cluster's threads and CTAs as the kernels take them
+inline bool valid_cluster_shape(int cluster, int threads, int min_threads = 32) {
+  return cluster >= 1 && cluster <= kMaxCluster && threads >= min_threads &&
+         threads <= kClusterThreads && threads % 32 == 0;
+}
+
+// the launch of one cluster of `cluster` CTAs of `threads` threads, each
+// with `smem` bytes of dynamic shared memory (16 CTAs is sm_90's
+// non-portable maximum, so the kernel opts in)
+template <class Kernel>
+cudaError_t configure_cluster(Kernel kernel, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr, int cluster,
+                              int threads, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// how many clusters of this shape the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 when it refuses the shape)
+template <class Kernel>
+int cluster_occupancy(Kernel kernel, int cluster, int threads, int smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure_cluster(kernel, &cfg, &attr, cluster, threads, smem);
+  int count = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused configuration admits no cluster
+    return 0;
+  }
+  return count;
+}
+
+// launch one cluster on `stream`; returns the launch's cudaError_t
+template <class Kernel, class... Args>
+int launch_cluster(Kernel kernel, int cluster, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure_cluster(kernel, &cfg, &attr, cluster, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// static shared memory of one CTA of a kernel, or -1
+template <class Kernel>
+int static_smem_bytes(Kernel kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return static_cast<int>(attr.sharedSizeBytes);
 }
 
 }  // namespace solve

@@ -27,10 +27,12 @@ their plain PyTorch versions: a Python loop over pods, each step
 parallel over nodes, taken only for tensors on the CPU.
 
 On a node-sharded mesh (ops/mesh.py ``NodeMesh``; ``solve_packed(...,
-mesh=)``) a greedy batch instead steps through its pods here
-(``_mesh_greedy``), each step one launch of the shard-candidate kernel K4
-(ops/shard_kernel.py, csrc/shard_candidate.cu) per device plus the
-best-of-shards combine and the winner's bump in torch.
+mesh=)``) a greedy batch goes to the mesh kernel K4 instead
+(``_mesh_greedy``; ops/shard_kernel.py, csrc/shard_candidate.cu): when one
+device holds every shard, ONE launch solves the batch with the
+best-of-shards combine and the winner's bump on the card; a mesh over
+several devices steps through its pods here, each step one K4 launch per
+device plus the combine and the bump in torch.
 
 All state, indices and outputs are int32 (torch defaults ``arange`` and
 integer sums to int64, so every such call names its dtype).
@@ -39,7 +41,7 @@ integer sums to int64, so every such call names its dtype).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -759,52 +761,43 @@ def kernel_build_counts() -> dict:
 _NO_INDEX = 1 << 30
 
 
-def _mesh_greedy(
-    mesh: NodeMesh,
-    alloc,  # [P] shard tensors [n_k, R] int32
-    req,  # [P] [n_k, R] int32
-    nzr,  # [P] [n_k, 2] int32
-    valid,  # [P] [n_k] bool
-    rows,  # [P] [U, n_k] bool: each shard's own mask columns
-    pods,  # per mesh.groups() entry: (pod_req [B, R], pod_nzr [B, 2],
-    #        midx [B]) int32 on that group's device
-    active: np.ndarray,  # [B] bool, host
-    config: GreedyConfig,
-):
-    """The mesh tier's greedy solve (``_mesh_shard_solver`` of the JAX
-    package): per ACTIVE pod step, K4 on every shard (one launch per
-    device), then the best-of-shards combine -- max score, then min
-    global index among the shards holding it (JAX's pmax/pmin) -- then
-    the winner's bump on its own shard. The combine and the bump are
-    plain torch ops, so the step loop never waits on the host. Inactive
-    pods are skipped (they place nowhere and change nothing, as the
-    ``active`` gate of the JAX combine makes them). Returns
-    (assignment [B] int32 on the first device, req' ShardedRows, nzr'
-    ShardedRows); the inputs are never written."""
+class _DeviceWork(NamedTuple):
+    """One device's part of a mesh solve: its shards, its working carry
+    (the shards' rows stacked in shard order plus one scratch row), each
+    shard's rows in it, its ShardCandidates, its first column of the
+    combine's candidates, and its row map (``NodeMesh.row_map``)."""
+
+    device: torch.device
+    shards: list
+    req: torch.Tensor
+    nzr: torch.Tensor
+    views: list
+    cands: object
+    col: int
+    row_map: torch.Tensor
+    pod_req: torch.Tensor
+    pod_nzr: torch.Tensor
+
+
+def _mesh_work(mesh, alloc, req, nzr, valid, rows, pods, config):
+    """Every device's ``_DeviceWork`` for one batch, and the combine's
+    candidates (score [B, P] f32, index [B, P] i32) on the first device,
+    one column per shard in group order: the first group's K4 writes its
+    columns directly, every other group's are copied in."""
     from kubernetes_tpu_torch.ops.shard_kernel import ShardCandidates
 
     first = mesh.first
     n = sum(int(a.shape[0]) for a in alloc)
     bounds = mesh.bounds(n)
-    b = int(active.shape[0])
-    groups = mesh.groups()
-    # the combine's candidates on the first device, one column per shard
-    # in group order: the first group (the first device's shards) writes
-    # its columns from K4 directly, every other group's are copied in
+    b = int(pods[0][0].shape[0])
     score = torch.empty((b, mesh.size), dtype=torch.float32, device=first)
     index = torch.empty((b, mesh.size), dtype=torch.int32, device=first)
-    offs = torch.tensor(
-        [bounds[k][0] for _, ks in groups for k in ks],
-        dtype=torch.int64, device=first,
-    )
     work, col = [], 0
     for g, ((dev, ks), (pod_req, pod_nzr, midx)) in enumerate(
-        zip(groups, pods)
+        zip(mesh.groups(), pods)
     ):
         r = pod_req.shape[1]
-        # the device's working carry: its shards' rows stacked in shard
-        # order plus one scratch row that takes a bump placed elsewhere
-        # (cat copies, so the resident carry is never written)
+        # cat copies, so the resident carry is never written
         rq = torch.cat([req[k].to(torch.int32) for k in ks]
                        + [torch.zeros((1, r), dtype=torch.int32, device=dev)])
         nz = torch.cat([nzr[k].to(torch.int32) for k in ks]
@@ -820,35 +813,87 @@ def _mesh_greedy(
             [nz[lo:hi] for lo, hi in views], [valid[k] for k in ks],
             [rows[k] for k in ks], pod_req, pod_nzr, midx, config, **out,
         )
-        work.append((dev, ks, rq, nz, views, cands, col,
-                     mesh.row_map(n, dev, ks), pod_req, pod_nzr))
+        work.append(_DeviceWork(dev, ks, rq, nz, views, cands, col,
+                                mesh.row_map(n, dev, ks), pod_req, pod_nzr))
         col += len(ks)
+    return work, score, index
+
+
+def _mesh_step_loop(mesh, work, score, index, active: np.ndarray):
+    """The route of a mesh over several devices: per ACTIVE pod step, K4
+    on every device (``ShardCandidates.step``), every other device's
+    candidates copied next to the first's, the combine (max score, then
+    min global index: JAX's pmax/pmin) and the winner's bump on its own
+    device, as plain torch ops with no host sync. Returns the assignment
+    [B] int32 on the first device."""
+    first = mesh.first
+    n = sum(hi - lo for w in work for lo, hi in w.views)
+    bounds = mesh.bounds(n)
+    offs = torch.tensor(
+        [bounds[k][0] for w in work for k in w.shards],
+        dtype=torch.int64, device=first,
+    )
     # chosen global row per step; n (the row maps' "no node") when the
     # pod placed nowhere or was skipped
-    chosen = torch.full((b,), n, dtype=torch.int64, device=first)
+    chosen = torch.full((active.shape[0],), n, dtype=torch.int64, device=first)
     for t in np.flatnonzero(active).tolist():
         for w in work:
-            w[5].step(t)
-        for _, ks, _, _, _, cands, c0, _, _, _ in work[1:]:
-            # another device's candidates meet the first's
-            score[t, c0:c0 + len(ks)].copy_(cands.score[t])
-            index[t, c0:c0 + len(ks)].copy_(cands.index[t])
+            w.cands.step(t)
+        for w in work[1:]:
+            c0 = w.col
+            score[t, c0:c0 + len(w.shards)].copy_(w.cands.score[t])
+            index[t, c0:c0 + len(w.shards)].copy_(w.cands.index[t])
         s, gidx = score[t], index[t] + offs
         best = s.max()
         win = torch.where(s == best, gidx, _NO_INDEX).min()
         chosen[t] = torch.where(best > -torch.inf, win, n)
         row = chosen[t:t + 1]
-        for dev, _, rq, nz, _, _, _, row_map, pod_req, pod_nzr in work:
-            local = row_map.index_select(0, row.to(dev))
-            rq.index_add_(0, local, pod_req[t:t + 1])
-            nz.index_add_(0, local, pod_nzr[t:t + 1])
-    assignment = torch.where(chosen == n, NO_NODE, chosen).to(torch.int32)
+        for w in work:
+            local = w.row_map.index_select(0, row.to(w.device))
+            w.req.index_add_(0, local, w.pod_req[t:t + 1])
+            w.nzr.index_add_(0, local, w.pod_nzr[t:t + 1])
+    return torch.where(chosen == n, NO_NODE, chosen).to(torch.int32)
+
+
+def _mesh_greedy(
+    mesh: NodeMesh,
+    alloc,  # [P] shard tensors [n_k, R] int32
+    req,  # [P] [n_k, R] int32
+    nzr,  # [P] [n_k, 2] int32
+    valid,  # [P] [n_k] bool
+    rows,  # [P] [U, n_k] bool: each shard's own mask columns
+    pods,  # per mesh.groups() entry: (pod_req [B, R], pod_nzr [B, 2],
+    #        midx [B]) int32 on that group's device
+    active: np.ndarray,  # [B] bool, host
+    config: GreedyConfig,
+):
+    """The mesh tier's greedy solve (``_mesh_shard_solver`` of the JAX
+    package): per ACTIVE pod step, every shard's candidate (K4), the
+    best-of-shards combine -- max score, then min global index among the
+    shards holding it (JAX's pmax/pmin) -- and the winner's bump on its
+    own shard. Inactive pods place nowhere and change nothing (the
+    ``active`` gate of the JAX combine). Routed by the mesh's layout:
+    when one device holds every shard, the whole batch is ONE K4 launch
+    (``ShardCandidates.batch``; on the CPU its plain version); a mesh
+    over several devices runs the step loop (``_mesh_step_loop``).
+    Returns (assignment [B] int32 on the first device, req' ShardedRows,
+    nzr' ShardedRows); the inputs are never written."""
+    work, score, index = _mesh_work(
+        mesh, alloc, req, nzr, valid, rows, pods, config
+    )
+    if len(work) == 1:
+        assignment = work[0].cands.batch(
+            torch.from_numpy(np.ascontiguousarray(active, dtype=bool))
+            .to(mesh.first)
+        )
+    else:
+        assignment = _mesh_step_loop(mesh, work, score, index, active)
     req_out: list = [None] * mesh.size
     nzr_out: list = [None] * mesh.size
-    for _, ks, rq, nz, views, _, _, _, _, _ in work:
-        for k, (lo, hi) in zip(ks, views):
-            req_out[k] = rq[lo:hi]
-            nzr_out[k] = nz[lo:hi]
+    for w in work:
+        for k, (lo, hi) in zip(w.shards, w.views):
+            req_out[k] = w.req[lo:hi]
+            nzr_out[k] = w.nzr[lo:hi]
     return (
         assignment, ShardedRows(mesh, req_out), ShardedRows(mesh, nzr_out)
     )
@@ -863,8 +908,8 @@ def _solve_packed_mesh(
     shards (shards on one device share it; each shard views only its own
     columns). The resident state (ShardedRows, or node-sized pieces in
     the buffer on a cold upload) stays on its devices; row patches apply
-    shard by shard (``shard_local_row_set``). A greedy batch runs the
-    K4 step loop (``_mesh_greedy``). A constrained batch gathers the
+    shard by shard (``shard_local_row_set``). A greedy batch runs K4
+    (``_mesh_greedy``). A constrained batch gathers the
     state onto the first device, runs ``constrained_solve`` (K2 on the
     card) and splits req'/nzr' back: the function the JAX mesh computes
     on its GSPMD twin. Returns (assignment [B] int32 on the first
@@ -968,8 +1013,8 @@ def make_sharded_solver(mesh: NodeMesh, config: GreedyConfig = GreedyConfig()):
     """The stateless node-sharded greedy solve (the JAX package's
     ``make_sharded_solver``, which ``__graft_entry__.dryrun_multichip``
     drives): every ``[N, ...]`` operand is split over the mesh's shards,
-    the pod batch goes to every device, and each pod step runs K4 per
-    shard plus the best-of-shards combine (``_mesh_greedy``).
+    the pod batch goes to every device, and K4 solves it with the
+    best-of-shards combine (``_mesh_greedy``).
 
     ``solve(allocatable [N, R], requested [N, R], nzr [N, 2], valid [N],
     pod_requests [B, R], pod_nzr [B, 2], static_mask [B, N], active [B])``

@@ -1,10 +1,13 @@
-"""Launch plans of the cluster kernels K1 and K2.
+"""Launch plans of the cluster kernels K1-K4.
 
-K1 (``csrc/greedy_solve.cu``) and K2 (``csrc/constrained_solve.cu``)
-each run a batch as ONE thread-block cluster of C CTAs, CTA k owning the
-contiguous node rows ``[k * N // C, (k + 1) * N // C)``. A plan fixes C,
-the threads per CTA, the side of the shape gate and the dynamic shared
-memory of one CTA:
+K1 (``csrc/greedy_solve.cu``), K2 (``csrc/constrained_solve.cu``) and K3
+(``csrc/preempt_solve.cu``) each run a batch as ONE thread-block cluster
+of C CTAs, CTA k owning the contiguous node rows ``[k * N // C, (k + 1)
+* N // C)`` (``plan_launch``). K4's batch entry
+(``csrc/shard_candidate.cu``) runs the shards of one device as one
+cluster whose slices follow the shard boundaries (``plan_shards``). A
+plan fixes C, the threads per CTA, the side of the shape gate and the
+dynamic shared memory of one CTA:
 
 - *resident*: a CTA's node state (and, per kernel, its per-row scratch)
   lives in shared memory for the whole launch. Chosen whenever the
@@ -21,13 +24,14 @@ only, with the card's own answer to "does a cluster of this shape fit"
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 from kubernetes_tpu_torch.ops.kernel_build import KernelError
 
 __all__ = [
     "CLUSTER_SIZES", "LaunchPlan", "MAX_THREADS", "SMEM_PER_CTA",
-    "card_admits", "choose_plan", "plan_launch", "slice_bounds",
+    "card_admits", "choose_plan", "plan_launch", "plan_shards",
+    "slice_bounds",
 ]
 
 #: shared memory one CTA may use on sm_90 (the opt-in maximum)
@@ -48,6 +52,7 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int                # dynamic shared memory per CTA
     static_bytes: int              # the kernel's static shared memory
     slice_bounds: Tuple[int, ...]  # cluster + 1 row bounds, 0 .. N
+    shards: Tuple[int, ...] = ()   # plan_shards: the shard of each CTA
 
 
 def slice_bounds(n: int, cluster: int) -> Tuple[int, ...]:
@@ -60,25 +65,19 @@ def _align(nbytes: int) -> int:
     return -(-nbytes // _ALIGN) * _ALIGN
 
 
-def plan_launch(
-    n: int, cluster: int, node_bytes: int, fixed_bytes: int,
-    static_bytes: int = 0, extra_warps: int = 0,
-    smem_limit: int = SMEM_PER_CTA,
+def _plan(
+    bounds: Tuple[int, ...], node_bytes: int, fixed_bytes: int,
+    static_bytes: int, extra_warps: int, smem_limit: int,
+    shards: Tuple[int, ...] = (), min_threads: int = 32,
 ) -> LaunchPlan:
-    """The plan for N node rows on at most ``cluster`` CTAs.
-
-    ``node_bytes``: the dynamic shared memory one resident row takes;
-    ``fixed_bytes``: what a CTA takes on either side of the gate;
-    ``static_bytes``: the kernel's static shared memory;
-    ``extra_warps``: warps per CTA that own no rows (K2's parameter
-    warp). Threads: one per row of the largest slice, in whole warps, at
-    most ``MAX_THREADS`` with the extra warps."""
-    if n < 1 or cluster < 1:
-        raise ValueError(f"no plan for {n} rows on {cluster} CTAs")
-    c = min(cluster, max(1, -(-n // MIN_ROWS_PER_CTA)))
-    cap = -(-n // c)  # rows of the largest slice
+    """Threads (one per row of the largest slice, in whole warps, at
+    least ``min_threads`` and at most ``MAX_THREADS`` with the extra
+    warps), the gate side and the shared memory of the CTAs whose rows
+    ``bounds`` gives."""
+    cap = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
     row_threads = min(
-        MAX_THREADS - 32 * extra_warps, max(32, 32 * -(-cap // 32))
+        MAX_THREADS - 32 * extra_warps,
+        max(min_threads, 32 * -(-cap // 32)),
     )
     resident_bytes = _align(fixed_bytes + cap * node_bytes)
     resident = static_bytes + resident_bytes <= smem_limit
@@ -89,9 +88,64 @@ def plan_launch(
             f"{smem_limit}"
         )
     return LaunchPlan(
-        c, row_threads + 32 * extra_warps, resident, smem, static_bytes,
-        slice_bounds(n, c),
+        len(bounds) - 1, row_threads + 32 * extra_warps, resident, smem,
+        static_bytes, bounds, shards,
     )
+
+
+def plan_launch(
+    n: int, cluster: int, node_bytes: int, fixed_bytes: int,
+    static_bytes: int = 0, extra_warps: int = 0,
+    smem_limit: int = SMEM_PER_CTA, min_threads: int = 32,
+) -> LaunchPlan:
+    """The plan for N node rows on at most ``cluster`` CTAs.
+
+    ``node_bytes``: the dynamic shared memory one resident row takes;
+    ``fixed_bytes``: what a CTA takes on either side of the gate;
+    ``static_bytes``: the kernel's static shared memory;
+    ``extra_warps``: warps per CTA that own no rows (K2's parameter
+    warp). Threads: one per row of the largest slice, in whole warps, at
+    least ``min_threads`` (K3's warps build keys one node each) and at
+    most ``MAX_THREADS`` with the extra warps."""
+    if n < 1 or cluster < 1:
+        raise ValueError(f"no plan for {n} rows on {cluster} CTAs")
+    c = min(cluster, max(1, -(-n // MIN_ROWS_PER_CTA)))
+    return _plan(slice_bounds(n, c), node_bytes, fixed_bytes, static_bytes,
+                 extra_warps, smem_limit, min_threads=min_threads)
+
+
+def plan_shards(
+    n_loc: Sequence[int], cluster: int, node_bytes: int, fixed_bytes: int,
+    static_bytes: int = 0, smem_limit: int = SMEM_PER_CTA,
+) -> LaunchPlan:
+    """The plan for P shards of ``n_loc[k]`` rows, stacked in shard order
+    on one device, on at most ``cluster`` CTAs whose slices follow the
+    shard boundaries: every shard gets at least one CTA and every CTA's
+    rows lie inside one shard; the other CTAs go one at a time to the
+    shard whose longest slice is longest (the lower shard on a tie), and
+    a shard's q CTAs split its rows as ``slice_bounds(n_k, q)``.
+    ``shards`` names each CTA's shard, ``slice_bounds`` its rows in the
+    stacked order. Raises KernelError for more shards than CTAs."""
+    p = len(n_loc)
+    n = sum(n_loc)
+    if p < 1 or n < 1 or cluster < 1 or min(n_loc) < 0:
+        raise ValueError(f"no plan for shards {list(n_loc)} on {cluster} CTAs")
+    if p > cluster:
+        raise KernelError(
+            f"{p} shards need a cluster of at least {p} CTAs, not {cluster}"
+        )
+    c = min(cluster, max(p, -(-n // MIN_ROWS_PER_CTA)))
+    q = [1] * p
+    for _ in range(c - p):
+        k = max(range(p), key=lambda k: (-(-n_loc[k] // q[k]), -k))
+        q[k] += 1
+    bounds, shards, off = [0], [], 0
+    for k, (m, qk) in enumerate(zip(n_loc, q)):
+        bounds += [off + b for b in slice_bounds(m, qk)[1:]]
+        shards += [k] * qk
+        off += m
+    return _plan(tuple(bounds), node_bytes, fixed_bytes, static_bytes, 0,
+                 smem_limit, tuple(shards))
 
 
 def choose_plan(

@@ -51,7 +51,7 @@ def plan_for(n: int, r: int, cluster: int, static_bytes: int = 0) -> LaunchPlan:
     """K1's launch plan for N rows of R dims on at most ``cluster`` CTAs.
     A resident row holds alloc, req and nzr and one word of mask bits;
     every CTA stages a chunk's pod requests, nzr, mask rows and flags
-    (csrc/greedy_solve.cu dynamic_smem_bytes)."""
+    (csrc/solve_common.cuh greedy_smem_bytes)."""
     return plan_launch(
         n, cluster, node_bytes=4 * (2 * r + 3),
         fixed_bytes=4 * _CHUNK * (r + 4), static_bytes=static_bytes,

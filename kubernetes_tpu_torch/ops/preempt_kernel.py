@@ -1,15 +1,20 @@
 """K3: the preemption victim search as ONE hand-written CUDA kernel for
-Hopper.
+Hopper, launched as one thread-block cluster.
 
 Replaces ``kubernetes_tpu/ops/pallas_preempt.py::_preempt_kernel`` (entry
 ``pallas_preempt_solve``) and computes the function of the JAX package's
 XLA wave kernel (``ops/preemption.py::_preempt_batch_kernel`` with
 ``_device_pick``), PDB budgets and pre-existing nominations included.
 The source is ``csrc/preempt_solve.cu``; its header says what bounds the
-kernel on the card and what the one-block design leaves on the table.
-The plain PyTorch version is ``ops/preemption.preempt_batch_plain``:
-``preempt_solve`` takes it only for tensors that lie on the CPU. A
-tensor on the card launches the kernel or raises.
+kernel on the card and how its cluster works. The plain PyTorch version
+is ``ops/preemption.preempt_batch_plain``: ``preempt_solve`` takes it
+only for tensors that lie on the CPU. A tensor on the card launches the
+kernel or raises.
+
+Each launch is one cluster planned by ``plan_for`` (``ops/cluster_plan``):
+the largest cluster the card admits, each CTA's node slice (its state,
+victims, PDB bits and pick keys) resident in shared memory when it fits,
+in a device-memory scratch layout otherwise.
 
 The TPU kernel serves only waves without PDBs and with at most 32
 victims per node, in 512-pod chunks over power-of-two padded shapes.
@@ -24,10 +29,17 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from kubernetes_tpu_torch.ops.cluster_plan import (
+    MAX_THREADS,
+    LaunchPlan,
+    card_admits,
+    choose_plan,
+    plan_launch,
+)
 from kubernetes_tpu_torch.ops.kernel_build import (
     KernelError,
     build_library,
@@ -35,7 +47,59 @@ from kubernetes_tpu_torch.ops.kernel_build import (
 )
 from kubernetes_tpu_torch.ops.preemption import preempt_batch_plain
 
-__all__ = ["KernelError", "build", "preempt_solve", "preempt_solve_cuda"]
+__all__ = [
+    "KernelError", "MAX_DIMS", "MAX_VICTIMS", "build", "fixed_words", "node_words",
+    "plan_for", "preempt_solve", "preempt_solve_cuda",
+]
+
+
+#: most resource dims K3 takes (csrc/preempt_solve.cu kMaxDims: a node's
+#: dims live two to a lane of one warp)
+MAX_DIMS = 64
+#: victim slots per node K3 takes: below 2^16, the packed pick key holds
+#: the victim counts in 16 bits
+MAX_VICTIMS = (1 << 16) - 1
+_CHUNK = 32  # pods staged at once (solve_common.cuh kChunk)
+
+
+def node_words(r: int, v: int, p: int) -> int:
+    """int32 words of one node in a CTA's layout (csrc/preempt_solve.cu
+    node_words): alloc, carry and nomination addend (R each), victim
+    priorities and starts (V each), victim requests (R x V), active bits
+    (W), PDB match bits (ceil(V * P / 32)), budgets (P), the three victim
+    masks (3W), the candidate bit and the 6-word packed pick key."""
+    w = -(-v // 32)
+    return 3 * r + 2 * v + r * v + w + -(-(v * p) // 32) + p + 3 * w + 1 + 6
+
+
+def fixed_words(r: int) -> int:
+    """int32 words every CTA stages: the class's request and a chunk's
+    pod flags, priorities and candidate rows (csrc/preempt_solve.cu
+    fixed_words)."""
+    return r + 3 * _CHUNK
+
+
+def plan_for(n: int, r: int, v: int, p: int, cluster: int,
+             static_bytes: int = 0) -> LaunchPlan:
+    """K3's launch plan for N nodes of R dims with V victim slots and P
+    PDBs on at most ``cluster`` CTAs. A resident node holds its whole
+    layout; every CTA stages the fixed words, and the layout's odd stride
+    may add one node (csrc/preempt_solve.cu dynamic_smem_bytes). Every
+    CTA runs ``MAX_THREADS`` threads: its warps build the keys, one node
+    each, whatever the slice's length. Raises KernelError above
+    ``MAX_DIMS`` dims or ``MAX_VICTIMS`` victim slots."""
+    if r > MAX_DIMS or v > MAX_VICTIMS:
+        raise KernelError(
+            f"K3 takes at most {MAX_DIMS} resource dims and {MAX_VICTIMS} "
+            f"victim slots, got {r} and {v}"
+        )
+    words = node_words(r, v, p)
+    return plan_launch(
+        n, cluster, node_bytes=4 * words,
+        fixed_bytes=4 * (fixed_words(r) + words), static_bytes=static_bytes,
+        min_threads=MAX_THREADS,
+    )
+
 
 #: times the kernel library was built (or loaded) in this process --
 #: the cache watchdog's "compile" count
@@ -44,27 +108,46 @@ builds = 0
 launches = 0
 #: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
-
-#: int32 words of one node's pick key (csrc/preempt_solve.cu PickKey)
-_KEY_WORDS = 8
+#: the plan of the last launch
+last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+_static_bytes = 0
+#: clusters the card holds at once, per planned shape
+_admitted: dict = {}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process and source hash) and load the kernel
     library. Raises KernelError when nvcc fails."""
-    global _lib, builds
+    global _lib, builds, _static_bytes
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib, info = build_library("preempt_solve")
         fn = lib.preempt_solve_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p
         ]
+        lib.preempt_solve_max_clusters.restype = ctypes.c_int
+        lib.preempt_solve_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.preempt_solve_static_smem.restype = ctypes.c_int
+        lib.preempt_solve_static_smem.argtypes = [ctypes.c_int]
+        lib.preempt_solve_node_words.restype = ctypes.c_int
+        lib.preempt_solve_node_words.argtypes = [ctypes.c_int] * 3
+        lib.preempt_solve_fixed_words.restype = ctypes.c_int
+        lib.preempt_solve_fixed_words.argtypes = [ctypes.c_int]
+        static = [lib.preempt_solve_static_smem(k) for k in (0, 1)]
+        if min(static) < 0:
+            raise KernelError("cannot read preempt_solve's attributes")
+        for shape in ((4, 16, 0), (6, 48, 4), (1, 0, 0)):
+            if (lib.preempt_solve_node_words(*shape) != node_words(*shape)
+                    or lib.preempt_solve_fixed_words(shape[0])
+                    != fixed_words(shape[0])):
+                raise KernelError("preempt_solve's node layout disagrees")
+        _static_bytes = max(static)
         last_build.update(info)
         builds += 1
         _lib = lib
@@ -82,7 +165,7 @@ def preempt_solve_cuda(
     start times, bool masks. Returns fresh (chosen [B] int32, victims
     [B, W] int32 words, victims_violating [B, W], num_violating [B],
     state' [N, R]), W = ceil(V/32); the inputs are never written."""
-    global launches
+    global launches, last_plan
     device = alloc.device
     if device.type != "cuda":
         raise KernelError(f"preempt_solve_cuda needs CUDA tensors, got {device}")
@@ -129,27 +212,33 @@ def preempt_solve_cuda(
         nviol.zero_()
         state_out.copy_(base_requested)
         return chosen, vwords, violwords, nviol, state_out
-    # scratch: each node's working state, PDB budgets, masks
-    # (victims, violating victims, PDB-violating) and pick key
-    work = torch.empty((n, r), dtype=i32, device=device)
-    budgets = torch.empty((n, max(p, 1)), dtype=i32, device=device)
-    masks = torch.empty((n, 3 * w), dtype=i32, device=device)
-    keys = torch.empty((n, _KEY_WORDS), dtype=i32, device=device)
     lib = build()
     with torch.cuda.device(device):
+        plan = choose_plan(
+            lambda c: plan_for(n, r, v, p, c, _static_bytes),
+            card_admits(lib.preempt_solve_max_clusters, _admitted,
+                        torch.cuda.current_device()),
+        )
+        # the streaming side's layouts: one region per CTA
+        stride = -(-n // plan.cluster) | 1
+        scratch = torch.empty(
+            0 if plan.resident else plan.cluster * stride * node_words(r, v, p),
+            dtype=i32, device=device,
+        )
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.preempt_solve_launch(
             *(t.data_ptr() for t in operands),
             chosen.data_ptr(), vwords.data_ptr(), violwords.data_ptr(),
             nviol.data_ptr(), state_out.data_ptr(),
-            work.data_ptr(), budgets.data_ptr(), masks.data_ptr(),
-            keys.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             n, v, r, p, m, b, u,
+            plan.cluster, plan.threads, int(plan.resident), plan.smem_bytes,
             stream,
         )
     if err != 0:
         raise KernelError(f"preempt_solve_kernel launch failed: cudaError {err}")
     launches += 1
+    last_plan = plan
     return chosen, vwords, violwords, nviol, state_out
 
 

@@ -1,21 +1,33 @@
-"""K4: the shard candidate of the node-sharded mesh tier, ONE hand-written
-CUDA kernel for Hopper.
+"""K4: the node-sharded mesh tier's greedy solve, hand-written CUDA for
+Hopper.
 
 Replaces ``kubernetes_tpu/ops/pallas_solver.py::_shard_candidate_kernel``
 (entry ``pallas_shard_candidate``): one pod's fit + score + masked
 lowest-index argmax over one shard's node rows, returning (best score
-f32, shard-local index i32), and (-inf, 0) when nothing is feasible. The
-bump is not in it. The source is ``csrc/shard_candidate.cu``; its header
-says what bounds the kernel and what the simple design leaves on the
-table. One launch covers every shard that lives on one device, one block
-each. The mesh solve (``ops/assignment.py``) calls it once per pod step
-and combines the shards' candidates itself.
+f32, shard-local index i32), and (-inf, 0) when nothing is feasible --
+and, around it, the scan body of the JAX package's ``_mesh_shard_solver``
+(per pod step the shards' candidates, the best-of-shards combine and the
+winner's bump). The source is ``csrc/shard_candidate.cu``; its header
+says what bounds each entry and how the batch entry's cluster works.
 
-``shard_candidate_plain`` is the kernel's plain PyTorch version -- the
-JAX package's jnp step of ``_mesh_shard_solver`` (assignment.py:642-657)
-in torch, built from the port's ``_fits`` and ``_combined_score`` -- and
-serves tensors on the CPU and the checks; ``ShardCandidates`` takes it
-only for shards on the CPU. On the card it launches the kernel or raises.
+``ShardCandidates`` holds the shards of ONE device for one batch and has
+two entries, which the mesh solve (``ops/assignment._mesh_greedy``)
+picks by the mesh's layout:
+
+- ``batch(active)``: when the device holds every shard of the mesh, the
+  whole batch in ONE launch of one thread-block cluster (planned by
+  ``plan_for_batch``): every step's candidates, the combine and the
+  bump on the card, req/nzr updated in place;
+- ``step(t)``: on a mesh over several devices, one launch per pod step
+  covering the device's shards, the combine and the bump left to the
+  caller.
+
+``shard_candidate_plain`` (one step, the JAX package's jnp step of
+``_mesh_shard_solver``, assignment.py:642-657, in torch, built from the
+port's ``_fits`` and ``_combined_score``) and ``mesh_batch_plain`` (a
+batch: its step loop, the combine and the bump) are the plain PyTorch
+versions. They serve shards on the CPU and the checks; on the card the
+wrapper launches the kernel or raises.
 
 Build: ``ops/kernel_build.build_library`` (nvcc for ``sm_90a`` into a
 library with a plain C interface, loaded with ctypes, at first use).
@@ -25,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +46,12 @@ from kubernetes_tpu_torch.ops.assignment import (
     _combined_score,
     _fits,
 )
+from kubernetes_tpu_torch.ops.cluster_plan import (
+    LaunchPlan,
+    card_admits,
+    choose_plan,
+    plan_shards,
+)
 from kubernetes_tpu_torch.ops.kernel_build import (
     KernelError,
     build_library,
@@ -41,29 +59,51 @@ from kubernetes_tpu_torch.ops.kernel_build import (
 )
 
 __all__ = [
-    "KernelError", "ShardCandidates", "build", "shard_candidate",
-    "shard_candidate_cuda", "shard_candidate_plain",
+    "KernelError", "ShardCandidates", "build", "mesh_batch_plain",
+    "plan_for_batch", "shard_candidate", "shard_candidate_cuda",
+    "shard_candidate_plain",
 ]
 
 #: shards one launch covers (csrc/shard_candidate.cu kMaxShards)
 MAX_SHARDS_PER_LAUNCH = 16
+_CHUNK = 32  # pods staged at once (solve_common.cuh kChunk)
+
+
+def plan_for_batch(
+    n_loc: Sequence[int], r: int, cluster: int, static_bytes: int = 0,
+) -> LaunchPlan:
+    """The batch entry's plan for shards of ``n_loc`` rows of R dims on at
+    most ``cluster`` CTAs, every CTA inside one shard. A resident row
+    holds alloc, req and nzr and one word of mask bits; every CTA stages
+    a chunk's pod requests, nzr, mask rows and flags (as K1's plan_for;
+    csrc/solve_common.cuh greedy_smem_bytes)."""
+    return plan_shards(
+        n_loc, cluster, node_bytes=4 * (2 * r + 3),
+        fixed_bytes=4 * _CHUNK * (r + 4), static_bytes=static_bytes,
+    )
 
 #: times the kernel library was built (or loaded) in this process --
 #: the cache watchdog's "compile" count
 builds = 0
-#: kernel launches: incremented where the kernel is launched, nowhere else
+#: kernel launches (either entry): incremented where the kernel is
+#: launched, nowhere else
 launches = 0
 #: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
+#: the plan of the last batch launch
+last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+_static_bytes = 0
+#: batch clusters the card holds at once, per planned shape
+_admitted: dict = {}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per process and source hash) and load the kernel
     library. Raises KernelError when nvcc fails."""
-    global _lib, builds
+    global _lib, builds, _static_bytes
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -71,11 +111,26 @@ def build() -> ctypes.CDLL:
         fn = lib.shard_candidate_launch
         fn.restype = ctypes.c_int
         ptrs = ctypes.POINTER(ctypes.c_void_p)
+        ints = ctypes.POINTER(ctypes.c_int)
         fn.argtypes = (
-            [ctypes.c_int] + [ptrs] * 5 + [ctypes.POINTER(ctypes.c_int)]
+            [ctypes.c_int] + [ptrs] * 5 + [ints]
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 3
         )
+        fn = lib.shard_batch_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int] + [ptrs] * 5 + [ints] * 4
+            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        )
+        lib.shard_batch_max_clusters.restype = ctypes.c_int
+        lib.shard_batch_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.shard_batch_static_smem.restype = ctypes.c_int
+        lib.shard_batch_static_smem.argtypes = [ctypes.c_int]
+        static = [lib.shard_batch_static_smem(k) for k in (0, 1)]
+        if min(static) < 0:
+            raise KernelError("cannot read shard_batch_kernel's attributes")
+        _static_bytes = max(static)
         last_build.update(info)
         builds += 1
         _lib = lib
@@ -108,10 +163,59 @@ def shard_candidate_plain(
     return masked.max(), torch.argmax(masked).to(torch.int32)
 
 
+def mesh_batch_plain(
+    alloc, req, nzr, valid, rows, pod_req, pod_nzr, mask_index, active,
+    config: GreedyConfig = GreedyConfig(), score=None, index=None,
+    col: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batch entry's function on the shards of one device, which hold
+    every shard of the mesh (alloc..rows: one tensor per shard, as
+    ``ShardCandidates`` takes them; pod_req [B, R], pod_nzr [B, 2],
+    mask_index [B], active [B] bool). Per active pod t in order: each
+    shard's candidate (``shard_candidate_plain``) into ``score[t, col +
+    k]`` / ``index[t, col + k]``; the best-of-shards combine, max score
+    and then min global index (shard offset + local index, the shards'
+    rows stacked in order); the winner's req/nzr rows bumped IN PLACE.
+    An inactive pod places nowhere and writes nothing. Returns
+    (assignment [B] int32, -1 for no node; score [B, C] f32; index
+    [B, C] i32), the last two fresh [B, P] tensors unless given."""
+    p = len(alloc)
+    dev = pod_req.device
+    b = pod_req.shape[0]
+    if score is None:
+        score = torch.empty((b, p), dtype=torch.float32, device=dev)
+        index = torch.empty((b, p), dtype=torch.int32, device=dev)
+    offs = [0]
+    for a in alloc:
+        offs.append(offs[-1] + int(a.shape[0]))
+    assignment = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    for t in torch.nonzero(active).flatten().tolist():
+        for k in range(p):
+            best, idx = shard_candidate_plain(
+                alloc[k], req[k], nzr[k], valid[k], rows[k], pod_req[t],
+                pod_nzr[t], mask_index[t], config,
+            )
+            score[t, col + k] = best
+            index[t, col + k] = idx
+        cands = [(float(score[t, col + k]), offs[k] + int(index[t, col + k]))
+                 for k in range(p)]
+        top = max(c[0] for c in cands)
+        if top == -float("inf"):
+            continue
+        win = min(g for sc, g in cands if sc == top)
+        k = max(k for k in range(p) if offs[k] <= win)
+        local = win - offs[k]
+        req[k][local] += pod_req[t]
+        nzr[k][local] += pod_nzr[t]
+        assignment[t] = win
+    return assignment, score, index
+
+
 class ShardCandidates:
-    """The per-pod-step candidates of the shards of ONE device, for one
-    batch: ``step(t)`` writes pod t's (best, shard-local index) of shard
-    k into ``score[t, col + k]`` f32 and ``index[t, col + k]`` i32.
+    """The shards of ONE device, for one batch: ``step(t)`` writes pod
+    t's (best, shard-local index) of shard k into ``score[t, col + k]``
+    f32 and ``index[t, col + k]`` i32; ``batch(active)`` runs the whole
+    batch when these shards are every shard of the mesh.
 
     alloc/req/nzr/valid/rows: one tensor per shard, all on one device.
     pod_req [B, R], pod_nzr [B, 2], mask_index [B] int32 on that device.
@@ -121,9 +225,9 @@ class ShardCandidates:
     shard tensors are read at every step, so a caller that bumps its
     req/nzr views in place between steps is seen by the next one (on the
     card they must be contiguous: the kernel holds their addresses).
-    Shards on the card launch K4 (one launch per step, no host sync; at
-    most 16 shards per device, else KernelError); shards on the CPU run
-    the plain version."""
+    Shards on the card launch K4 (one launch per step or per batch, no
+    host sync; at most 16 shards per device, else KernelError); shards on
+    the CPU run the plain versions."""
 
     def __init__(
         self, alloc: Sequence[torch.Tensor], req, nzr, valid, rows,
@@ -198,7 +302,8 @@ class ShardCandidates:
             for j in range(5)
         )
         self._n_loc = (ctypes.c_int * self.p)(*(s[0].shape[0] for s in shards))
-        self._fn = build().shard_candidate_launch
+        self._lib = build()
+        self._fn = self._lib.shard_candidate_launch
         self._stream = torch.cuda.current_stream(device).cuda_stream
         w = self.config
         self._weights = (
@@ -238,6 +343,66 @@ class ShardCandidates:
                 f"shard_candidate_kernel launch failed: cudaError {err}"
             )
         launches += 1
+
+
+    def batch(self, active) -> torch.Tensor:
+        """The whole batch when these shards are every shard of the mesh:
+        per active pod t, the shards' candidates into ``score[t, col +
+        k]`` / ``index[t, col + k]`` (as ``step(t)`` writes them), the
+        best-of-shards combine (max score, then min index in the shards'
+        stacked rows) and the winner's bump, applied to the shards'
+        req/nzr IN PLACE. ``active``: [B] bool on the device. Returns the
+        assignment [B] int32 (the stacked row, -1 for no node or an
+        inactive pod). The card: ONE K4 launch, one thread-block cluster
+        (no host sync); the CPU: ``mesh_batch_plain``."""
+        global launches, last_plan
+        pod_req, pod_nzr, midx = self._pods
+        if self.device.type == "cpu":
+            cols = [list(x) for x in zip(*self._shards)]
+            return mesh_batch_plain(
+                *cols, pod_req, pod_nzr, midx, active, self.config,
+                score=self.score, index=self.index, col=self.col,
+            )[0]
+        device = self.device
+        b, r = pod_req.shape
+        act = _check(active, "active", torch.bool, (b,), device)
+        asg = torch.empty(b, dtype=torch.int32, device=device)
+        n_loc = list(self._n_loc)
+        if b == 0:
+            return asg
+        if self.p == 0 or self._u == 0 or sum(n_loc) == 0:
+            asg.fill_(-1)
+            cols = slice(self.col, self.col + self.p)
+            self.score[:, cols][act] = -torch.inf
+            self.index[:, cols][act] = 0
+            return asg
+        offs = [sum(n_loc[:k]) for k in range(self.p)]
+        with torch.cuda.device(device):
+            plan = choose_plan(
+                lambda c: plan_for_batch(n_loc, r, c, _static_bytes),
+                card_admits(self._lib.shard_batch_max_clusters, _admitted,
+                            torch.cuda.current_device()),
+            )
+            bounds = plan.slice_bounds
+            cta = [ctypes.c_int * plan.cluster for _ in range(3)]
+            shard = cta[0](*plan.shards)
+            lo = cta[1](*(bounds[c] - offs[k] for c, k in enumerate(plan.shards)))
+            hi = cta[2](*(bounds[c + 1] - offs[k]
+                          for c, k in enumerate(plan.shards)))
+            req_p, nzr_p, midx_p = self._pod_ptrs
+            err = self._lib.shard_batch_launch(
+                self.p, *self._arrays, self._n_loc, shard, lo, hi,
+                req_p, nzr_p, midx_p, act.data_ptr(), asg.data_ptr(),
+                self.score.data_ptr(), self.index.data_ptr(),
+                self.score.shape[1], self.col, r, b, self._u,
+                *self._weights, plan.cluster, plan.threads,
+                int(plan.resident), plan.smem_bytes, self._stream,
+            )
+        if err != 0:
+            raise KernelError(f"shard_batch_kernel launch failed: cudaError {err}")
+        launches += 1
+        last_plan = plan
+        return asg
 
 
 def _one_pod(alloc, req, nzr, valid, rows, pod_req, pod_nzr, mask_index,

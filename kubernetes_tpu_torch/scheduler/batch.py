@@ -25,8 +25,9 @@ tensors resident on the card: the greedy solve (ops/greedy_kernel.py)
 and, for a batch with spread, affinity, host-port or score-dynamic
 families, the constrained solve (ops/constrained_kernel.py). On a
 node-sharded mesh (``mesh=``, ops/mesh.py) the resident state lives
-sharded and a greedy batch steps through K4, the shard-candidate kernel
-(ops/shard_kernel.py), once per pod.
+sharded and a greedy batch solves through K4, the mesh kernel
+(ops/shard_kernel.py): one launch per batch when one device holds every
+shard, one launch per pod step per device otherwise.
 """
 
 from __future__ import annotations

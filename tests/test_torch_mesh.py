@@ -5,6 +5,10 @@
   step the JAX mesh runs off the TPU, over seeded shards, both configs,
   R = 6, infeasible pods included; and the known disagreement of the
   Pallas body above 2^24 memKiB, where the port follows the int32 sum.
+- K4's batch entry's plain version (``mesh_batch_plain``) against the JAX
+  package's ``make_sharded_solver`` on 2- and 4-device virtual meshes, and
+  the one-device batch route against the step route of a mesh over
+  several devices, on one device.
 - ``solve_packed(..., mesh=NodeMesh(["cpu"] * 2))`` against JAX
   ``solve_packed(..., mesh=Mesh(2 CPU devices))`` on the cold, refresh
   and steady layouts (delta slots and membership slots), against the
@@ -232,6 +236,137 @@ def test_shard_kernel_raises_off_the_card():
             *cpu, *(torch.zeros(t.shape, dtype=t.dtype)
                     for t in (pods[0][0], pods[1][0], pods[2]))
         )
+
+
+# -- K4's batch entry ---------------------------------------------------------
+
+def _split(mesh, problem):
+    """A problem's node arrays as one tensor per shard (fresh copies) and
+    its mask rows' columns per shard."""
+    alloc, req, nzr, valid, _, _, rows, _, _ = problem
+    bounds = mesh.bounds(alloc.shape[0])
+    cols = [[_t(a[lo:hi]).clone() for lo, hi in bounds]
+            for a in (alloc, req, nzr, valid)]
+    return cols, [_t(rows[:, lo:hi]) for lo, hi in bounds]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("seed", [3, 8])
+def test_mesh_batch_plain_matches_the_jax_sharded_solver(p, config, seed):
+    """A seeded batch (scalar dims, all-zero pods, invalid rows, mask
+    rows, inactive padding) through mesh_batch_plain on P shards of one
+    device and through the JAX package's node-sharded solver on P
+    virtual devices: assignment, req' and nzr' bit-equal, and every
+    active step's per-shard candidates are the shards' plain candidates
+    at that step's state."""
+    w = CONFIGS[config]
+    problem = _random_problem(seed, n=192, b=48, r=6)
+    alloc, req, nzr, valid, pod_req, pod_nzr, rows, midx, active = problem
+    jmesh = _jax_mesh(p)
+    with jmesh:
+        want = jax_asg.make_sharded_solver(jmesh, jax_asg.GreedyConfig(*w))(
+            alloc, req, nzr, valid, pod_req, pod_nzr, rows[midx], active,
+        )
+    mesh = NodeMesh(["cpu"] * p)
+    (a_s, q_s, z_s, v_s), r_s = _split(mesh, problem)
+    cfg = torch_asg.GreedyConfig(*w)
+    asg, score, index = shard_kernel.mesh_batch_plain(
+        a_s, q_s, z_s, v_s, r_s, _t(pod_req), _t(pod_nzr), _t(midx),
+        _t(active), cfg,
+    )
+    _assert_equal((asg, torch.cat(q_s), torch.cat(z_s)), want)
+    assert (asg.numpy() >= 0).sum() > 0
+    # replay: step t's candidates are the shards' candidates at the
+    # state every earlier placement left
+    (a_r, q_r, z_r, v_r), _ = _split(mesh, problem)
+    offs = np.cumsum([0] + [a.shape[0] for a in a_r])
+    for t in np.flatnonzero(active):
+        for k in range(p):
+            best, idx = shard_kernel.shard_candidate_plain(
+                a_r[k], q_r[k], z_r[k], v_r[k], r_s[k], _t(pod_req[t]),
+                _t(pod_nzr[t]), _t(midx[t:t + 1]), cfg,
+            )
+            assert float(score[t, k]) == float(best)
+            assert int(index[t, k]) == int(idx)
+        g = int(asg[t])
+        if g >= 0:
+            k = int(np.searchsorted(offs, g, side="right")) - 1
+            q_r[k][g - offs[k]] += _t(pod_req[t])
+            z_r[k][g - offs[k]] += _t(pod_nzr[t])
+
+
+@pytest.mark.parametrize("p", [1, 3, 4])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_one_device_batch_route_equals_the_step_route(p, seed):
+    """On a one-device CPU mesh the batch route (ShardCandidates.batch)
+    and the step route of a mesh over several devices (_mesh_step_loop)
+    give the same assignment, req', nzr' and active steps' candidates."""
+    mesh = NodeMesh(["cpu"] * p)
+    problem = _random_problem(seed, n=200, b=40, r=6)
+    alloc, req, nzr, valid, pod_req, pod_nzr, rows, midx, active = problem
+    (a_s, q_s, z_s, v_s), r_s = _split(mesh, problem)
+    pods = [(_t(pod_req), _t(pod_nzr), _t(midx))]
+    cfg = torch_asg.GreedyConfig()
+
+    def work():
+        return torch_asg._mesh_work(mesh, a_s, q_s, z_s, v_s, r_s, pods, cfg)
+
+    batch, b_score, b_index = work()
+    assert len(batch) == 1
+    b_asg = batch[0].cands.batch(_t(active))
+    steps, s_score, s_index = work()
+    s_asg = torch_asg._mesh_step_loop(mesh, steps, s_score, s_index, active)
+    n = alloc.shape[0]  # the working buffers' last row is scratch
+    _assert_equal(
+        (b_asg, batch[0].req[:n], batch[0].nzr[:n]),
+        (s_asg, steps[0].req[:n], steps[0].nzr[:n]),
+    )
+    act = _t(active)
+    assert torch.equal(b_score[act], s_score[act])
+    assert torch.equal(b_index[act], s_index[act])
+    assert (b_asg.numpy() >= 0).sum() > 0
+    # the inputs are never written
+    np.testing.assert_array_equal(torch.cat(q_s).numpy(), req)
+
+
+def test_the_mesh_layout_picks_the_route(monkeypatch):
+    """One device holding every shard takes the batch entry and never
+    steps; a mesh whose shards sit on distinct devices steps and never
+    takes the batch entry."""
+    problem = _random_problem(2, n=96, b=16, r=4)
+    alloc, req, nzr, valid, pod_req, pod_nzr, rows, midx, active = problem
+    mesh = NodeMesh(["cpu"] * 2)
+    (a_s, q_s, z_s, v_s), r_s = _split(mesh, problem)
+    pods = [(_t(pod_req), _t(pod_nzr), _t(midx))]
+    calls = []
+    real_batch = shard_kernel.ShardCandidates.batch
+    real_step = shard_kernel.ShardCandidates.step
+
+    def batch(self, act):
+        calls.append("batch")
+        return real_batch(self, act)
+
+    def step(self, t):
+        calls.append("step")
+        return real_step(self, t)
+
+    monkeypatch.setattr(shard_kernel.ShardCandidates, "batch", batch)
+    monkeypatch.setattr(shard_kernel.ShardCandidates, "step", step)
+    cfg = torch_asg.GreedyConfig()
+    one = torch_asg._mesh_greedy(mesh, a_s, q_s, z_s, v_s, r_s, pods,
+                                 active, cfg)
+    assert calls == ["batch"]
+    calls.clear()
+    monkeypatch.setattr(
+        NodeMesh, "groups",
+        lambda self: [(d, [k]) for k, d in enumerate(self.devices)],
+    )
+    several = torch_asg._mesh_greedy(mesh, a_s, q_s, z_s, v_s, r_s,
+                                     pods * 2, active, cfg)
+    assert set(calls) == {"step"}
+    assert len(calls) == 2 * int(active.sum())
+    _assert_equal(one, several)
 
 
 # -- the mesh and its sharded rows -------------------------------------------

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where a pod step of the cluster kernels K1 and K2 spends its cycles.
+"""Where a pod step of the cluster kernels K1, K2 and K3 spends its cycles.
 
     python3 tools/step_profile.py
 
-Needs one CUDA card. Builds K1 (csrc/greedy_solve.cu) and K2
-(csrc/constrained_solve.cu) a second time with -DSOLVE_STEP_PROFILE,
-which turns on the STEP_MARK counters of csrc/solve_common.cuh: thread 0
-of CTA 0 adds the clock64 cycles between consecutive marks to one
-counter per phase. Runs each kernel once at chip_smoke.py's shapes (K1:
-the burst's random batch and its homogeneous batch, B=4,096, N=5,632;
-K2: the constrained batch, B=1,024 with 1,000 active, N=5,632, with all
-three families and with each alone), after one warm launch, and prints
+Needs one CUDA card. Builds K1 (csrc/greedy_solve.cu), K2
+(csrc/constrained_solve.cu) and K3 (csrc/preempt_solve.cu) a second time
+with -DSOLVE_STEP_PROFILE, which turns on the STEP_MARK counters of
+csrc/solve_common.cuh: thread 0 of CTA 0 adds the clock64 cycles between
+consecutive marks to one counter per phase (K3's "owner rebuild" is
+added by the chosen node's owner warp instead). Runs each kernel once at
+chip_smoke.py's shapes (K1: the burst's random batch and its homogeneous
+batch, B=4,096, N=5,632; K2: the constrained batch, B=1,024 with 1,000
+active, N=5,632, with all three families and with each alone; K3: the
+Preemption/5000 wave, 1,032 active pods on 5,000 nodes, and its
+four-PDB case), after one warm launch, and prints
 one JSON line per case: the card, the kernel's ms with the counters on
 and off (their cost), the clock rate the counters imply, and the cycles
 per active pod step of each phase. A phase that ends in a barrier also
@@ -31,6 +34,7 @@ import chip_smoke  # noqa: E402
 from kubernetes_tpu_torch.ops import constrained_kernel as ck  # noqa: E402
 from kubernetes_tpu_torch.ops import greedy_kernel as gk  # noqa: E402
 from kubernetes_tpu_torch.ops import kernel_build  # noqa: E402
+from kubernetes_tpu_torch.ops import preempt_kernel as pk  # noqa: E402
 
 K1_PHASES = ["chunk staging", "bump and parameters", "scoring own rows",
              "cluster step"]
@@ -38,6 +42,8 @@ K2_PHASES = ["loop", "CTA barrier 1", "recounts and slot minima", "pass 1",
              "warp fold", "CTA barrier 2", "CTA fold and publish",
              "cluster barrier 1", "normaliser fold and pass 2",
              "cluster barrier 2 and pick", "replay"]
+K3_PHASES = ["parameters, class build and exchange", "pick",
+             "thread 0's rebuilds", "owner rebuild"]
 
 
 def time_ms(fn, reps=5):
@@ -105,7 +111,14 @@ def cases():
         k2.append((name, int(common[8].sum()),
                    lambda dev=dev, rows=rows: ck.constrained_solve_cuda(
                        *dev_common, *dev, rows=rows)))
-    return k1, k2
+    k3 = []
+    for name, kw in (("preemption5000_wave", dict(seed=0)),
+                     ("pdbs", dict(seed=2, b=512, classes=True, p=4))):
+        h = chip_smoke.preempt_problem(**kw)
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in h]
+        k3.append((name, int(h[15].sum()),
+                   lambda dev=dev: pk.preempt_solve_cuda(*dev)))
+    return k1, k2, k3
 
 
 def main():
@@ -113,9 +126,9 @@ def main():
         print("step_profile: no CUDA device is visible", file=sys.stderr)
         return 2
     smi = chip_smoke.nvidia_smi_line()
-    k1, k2 = cases()
+    k1, k2, k3 = cases()
     plain = {}
-    for mod, runs in ((gk, k1), (ck, k2)):
+    for mod, runs in ((gk, k1), (ck, k2), (pk, k3)):
         mod.build()
         for name, _steps, fn in runs:
             plain[name] = time_ms(fn)
@@ -123,6 +136,7 @@ def main():
     for mod, symbol, runs, phases in (
         (gk, "greedy_solve_step_cycles", k1, K1_PHASES),
         (ck, "constrained_solve_step_cycles", k2, K2_PHASES),
+        (pk, "preempt_solve_step_cycles", k3, K3_PHASES),
     ):
         mod._lib = None  # rebuild with the counters on
         mod._admitted.clear()

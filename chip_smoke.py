@@ -25,6 +25,18 @@ line is printed only when every phase passed):
    gate side, shared memory per CTA), ptxas's registers and spills for
    that side, and the microseconds per active pod step; a cluster of one
    CTA fails the phase.
+3b. ``sinkhorn_kernel_vs_twin``: K1's scored entry (the sinkhorn commit
+   scan) against its plain version ``sinkhorn_commit`` on the card, on
+   the same card-computed prior: ChurnSinkhorn/50000's batch (B=1,024,
+   N=50,048, one pod shape on one mask row, a churned load) at the
+   default weights and at most-allocated weight 2, and the burst shape.
+   Tolerance zero on assignments, requested' and nzr'. Times the prior
+   (the plan, torch ops) and both entries of K1 with CUDA events, the
+   plain version with the host clock; the bound adds the prior's bytes
+   and one add per scored pair to K1's. On the churn case the plan's
+   inputs computed on the card must equal the CPU's, and the plan on
+   the card must lie within 1e-6 of the plan on the CPU (the 1e4-scaled
+   prior within 1e-2): the reductions run in another order.
 4. ``constrained_kernel_vs_twin``: K2 against its plain PyTorch version
    on the card at the constrained burst's shape (B=1,024 with inactive
    padding, N=5,632 node rows, R=4), packed by the port's own packers
@@ -119,10 +131,32 @@ line is printed only when every phase passed):
    mesh; plain pods that share a batch with constrained ones ride K2),
    then a cluster
    saturated by plain priority-0 pods that all bind through K4, whose
-   high-priority burst preempts through K3 on the mesh's first device.
-10. ``kernels``: every ported kernel with its launches on the main path,
+   high-priority burst preempts through K3 on the mesh's first device;
+   (1c) 32 pods in sinkhorn mode on the mesh (the prior and K1's scored
+   entry on the gathered state), which must all bind where one card
+   places them.
+10. ``sinkhorn_churn``: ChurnSinkhorn/50000
+   (benchmarks/config/performance-config.yaml:480-488, its churn rounds
+   as benchmarks/runner.py:1269-1296 runs them) through the entry
+   points: new_scheduler(batch=True, max_batch=1024,
+   solver_mode="sinkhorn") on the card, 50,000 nodes (32 CPU, 64Gi, 110
+   pods, 10 zones), a HollowNodePool acking every bind, 100,000 init
+   pods of 100m/128Mi, then 10,000 measured pods in 5 rounds, each round
+   first deleting 2,000 bound pods. Asserts every pod binds and every
+   live pod is acked Running, no node over capacity, every solve on the
+   "cuda" tier with no fallback, one scored K1 launch per sinkhorn batch
+   and no greedy launch or plain commit; replays every measured batch
+   and every fourth init batch through ``sinkhorn_commit`` on the card
+   on the batch's own prior, which must be equal. Prints pods/s, p50/p99
+   create-to-bind, the stage seconds, the plan's and the scored entry's
+   device seconds (CUDA events) and the per-node CPU utilization mean,
+   std and max. Then RebalanceSinkhorn/500 (:268-277: 500 nodes, 6,000
+   init and 2,000 measured pods of 2 CPU/2Gi, 4 rounds of 500 deletes),
+   where the slot cap binds, every batch replayed.
+11. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
-   batch entry at the mesh burst's full batch).
+   batch entry at the mesh burst's full batch; K1's scored entry at
+   ChurnSinkhorn/50000's batch, its launches those of that workload).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -322,15 +356,23 @@ def ptxas_report(mod, resident, want=None):
     return out
 
 
-def plan_record(mod, active_pods, ms):
+#: K1's kernel instantiations: greedy_cluster_kernel<resident, scored>
+K1_GREEDY = "ILb{resident}ELb0E"
+K1_SCORED = "ILb{resident}ELb1E"
+
+
+def plan_record(mod, active_pods, ms, want=None):
     """The last launch's cluster, gate side and shared memory, the
-    instantiation's registers and spills, and the time per active pod."""
+    instantiation's registers and spills (``want``: a format of the
+    mangled name's part that picks it, given ``resident``), and the time
+    per active pod."""
     plan = mod.last_plan
+    pick = want.format(resident=int(plan.resident)) if want else None
     return dict(
         cluster=plan.cluster, threads=plan.threads,
         side="resident" if plan.resident else "streaming",
         smem_bytes_per_cta=plan.smem_bytes + plan.static_bytes,
-        ptxas=ptxas_report(mod, plan.resident),
+        ptxas=ptxas_report(mod, plan.resident, pick),
         us_per_pod_step=ms * 1e3 / max(active_pods, 1),
     )
 
@@ -388,7 +430,7 @@ def kernel_vs_twin(gk, asg_mod, cfg_cls):
             pairs_tested=tested, pairs_scored=scored, ops=ops,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms > ops_ms else "operations",
-            **plan_record(gk, int(host[8].sum()), ms),
+            **plan_record(gk, int(host[8].sum()), ms, K1_GREEDY),
         )
         emit("kernel_vs_twin", **rec)
         if not all(equal):
@@ -397,6 +439,174 @@ def kernel_vs_twin(gk, asg_mod, cfg_cls):
             raise AssertionError(f"{name} launched a cluster of one CTA")
         if name == "burst_r4":
             timing = rec
+    return timing, max_err
+
+
+# -- phase 3b: K1's scored entry (the sinkhorn commit scan) vs its twin -------
+
+# ChurnSinkhorn/50000's batch: 50,000 nodes padded to 128 rows, one pod
+# shape on one mask row
+CHURN_SHAPE = dict(n=50048, b=1024, r=4, u=1)
+CHURN_LIVE = 50000
+#: the plan on the card against the plan on the CPU from the same inputs.
+#: Not zero: each logsumexp reduces 1,024 or 50,048 terms in another
+#: order on the card than on the CPU, and the card's exp and log may
+#: differ from the CPU's in the last bit; 50 iterations carry that on.
+#: The prior is the plan scaled by 1e4.
+PLAN_TOL = 1e-6
+PRIOR_TOL = 1e-2
+
+
+def churned_problem(seed, n, b, r, u, live=CHURN_LIVE):
+    """ChurnSinkhorn/50000's batch as K1's scored entry sees it: ``live``
+    nodes of 32 CPU / 64Gi / 110 pods (the rest capacity padding) after
+    churn, each holding a seeded number of 100m/128Mi pods (two on
+    average, some nodes full), and a batch of 100m/128Mi pods on one
+    all-true mask row."""
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:live, 0] = 32000
+    alloc[:live, 1] = 64 * 1024 * 1024
+    alloc[:live, 3] = 110
+    pods = np.minimum(rng.poisson(2.0, n), 110)
+    pods[rng.random(n) < 0.01] = 110
+    pods[live:] = 0
+    requested = np.zeros_like(alloc)
+    requested[:, 0] = pods * 100
+    requested[:, 1] = pods * 128 * 1024
+    requested[:, 3] = pods
+    nzr = requested[:, :2].copy()
+    valid = np.zeros(n, bool)
+    valid[:live] = True
+    pod_req = np.zeros((b, r), np.int32)
+    pod_req[:, 0] = 100
+    pod_req[:, 1] = 128 * 1024
+    pod_req[:, 3] = 1
+    pod_nzr = pod_req[:, :2].copy()
+    rows = np.ones((u, n), bool)
+    midx = np.zeros(b, np.int32)
+    active = np.ones(b, bool)
+    return [alloc, requested, nzr, valid, pod_req, pod_nzr, rows, midx, active]
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` over ``reps`` calls on the current
+    stream, by CUDA events, after one warm call; returns (ms, last
+    result)."""
+    out = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def scored_bound(host, asg, cfg, shape):
+    """The scored entry's bound: K1's bytes plus the [B, N] f32 prior read
+    once; K1's operations plus one add per scored pair."""
+    n, b, r, u = shape["n"], shape["b"], shape["r"], shape["u"]
+    tested, scored = pair_counts(host, asg)
+    ops = tested * fit_ops(r) + scored * (1 + score_ops(
+        cfg.least_allocated_weight, cfg.balanced_allocation_weight,
+        cfg.most_allocated_weight,
+    ))
+    bytes_ms = (kernel_bytes(n, b, r, u) + 4 * b * n) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_UNFUSED_OPS_PER_S * 1e3
+    return dict(
+        pairs_tested=tested, pairs_scored=scored, ops=ops,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms > ops_ms else "operations",
+    )
+
+
+def sinkhorn_kernel_vs_twin(gk, asg_mod, sk_mod):
+    """K1's scored entry against ``sinkhorn_commit`` on the card, on the
+    same card-computed prior, tolerance zero; the plan on the card against
+    the plan on the CPU from the same inputs (the churn case)."""
+    cfg = asg_mod.GreedyConfig
+    cases = [
+        ("churn_sinkhorn_50000", churned_problem(0, **CHURN_SHAPE),
+         CHURN_SHAPE, cfg(), True),
+        ("churn_most_allocated_w2", churned_problem(1, **CHURN_SHAPE),
+         CHURN_SHAPE, cfg(0, 0, 2), False),
+        ("burst_shape", random_problem(4, **BURST_SHAPE), BURST_SHAPE,
+         cfg(), False),
+    ]
+    timing = None
+    max_err = 0.0
+    for name, host, shape, config, check_plan in cases:
+        dev = [torch.from_numpy(a).cuda() for a in host]
+        torch.cuda.synchronize()
+        plan_ms, prior = cuda_ms(
+            lambda: asg_mod.sinkhorn_prior(*dev, config=config), 3
+        )
+        k_out = gk.greedy_solve_cuda(*dev, config=config, prior=prior)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_out = asg_mod.sinkhorn_commit(*dev, prior, config=config)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = [bool(torch.equal(k, p)) for k, p in zip(k_out, p_out)]
+        err = max(
+            float((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+            for k, p in zip(k_out, p_out)
+        )
+        max_err = max(max_err, err)
+        ms, _ = cuda_ms(
+            lambda: gk.greedy_solve_cuda(*dev, config=config, prior=prior), 5
+        )
+        # the greedy entry on the same inputs: what the prior adds
+        greedy_ms, _ = cuda_ms(
+            lambda: gk.greedy_solve_cuda(*dev, config=config), 5
+        )
+        active = int(host[8].sum())
+        rec = dict(
+            case=name, shape=shape, equal=equal, max_abs_err=err,
+            placed=int((k_out[0] >= 0).sum()), ms=ms, plain_ms=plain_ms,
+            plan_ms=plan_ms, greedy_entry_ms=greedy_ms,
+            **scored_bound(host, k_out[0].cpu().numpy(), config, shape),
+            **plan_record(gk, active, ms, K1_SCORED),
+        )
+        if check_plan:
+            inputs = asg_mod.sinkhorn_plan_inputs(*dev, config=config)
+            cpu_inputs = asg_mod.sinkhorn_plan_inputs(
+                *(torch.from_numpy(a) for a in host), config=config
+            )
+            same_inputs = all(
+                torch.equal(a.cpu(), c) for a, c in zip(inputs, cpu_inputs)
+            )
+            plan_card = sk_mod.sinkhorn_plan(*inputs, dev[8]).cpu()
+            t0 = time.perf_counter()
+            plan_cpu = sk_mod.sinkhorn_plan(
+                *cpu_inputs, torch.from_numpy(host[8])
+            )
+            rec.update(
+                plan_inputs_equal=same_inputs,
+                plan_max_abs_err=float((plan_card - plan_cpu).abs().max()),
+                prior_max_abs_err=float(
+                    (plan_card * sk_mod.PRIOR_SCALE
+                     - plan_cpu * sk_mod.PRIOR_SCALE).abs().max()
+                ),
+                plan_tol=PLAN_TOL, prior_tol=PRIOR_TOL,
+                cpu_plan_seconds=time.perf_counter() - t0,
+            )
+        emit("sinkhorn_kernel_vs_twin", **rec)
+        if not all(equal):
+            raise AssertionError(f"the scored entry disagrees with its twin on {name}")
+        if rec["cluster"] < 2:
+            raise AssertionError(f"{name} launched a cluster of one CTA")
+        if check_plan and not (
+            rec["plan_inputs_equal"] and rec["plan_max_abs_err"] <= PLAN_TOL
+            and rec["prior_max_abs_err"] <= PRIOR_TOL
+        ):
+            raise AssertionError(f"the card's plan is off the CPU's on {name}")
+        if name == "churn_sinkhorn_50000":
+            timing = rec
+        del dev, prior, k_out, p_out
+        torch.cuda.empty_cache()
     return timing, max_err
 
 
@@ -1993,6 +2203,23 @@ def mesh_mixed(mesh, gk, ck, pk, sk):
             f"device preemptions, {k3} K3 launches, {host_preemptions} on "
             f"the host"
         )
+    # 1c: sinkhorn mode on the mesh (the prior and K1's scored entry on
+    # the state gathered onto the first device), against one device
+    t2 = time.perf_counter()
+    sk_mesh = sinkhorn_part_1c(gk, n_nodes, mesh)
+    sk_one = sinkhorn_part_1c(gk, n_nodes, None, device=mesh.first)
+    if (sk_mesh["bound"] != 32 or sk_one["bound"] != 32
+            or sk_mesh["placed"] != sk_one["placed"]
+            or sk_mesh["pods_fallback"] or sk_one["pods_fallback"]
+            or sk_mesh["tiers"] != {tier} or sk_one["tiers"] != {tier}
+            or (on_card and (sk_mesh["scored"] <= 0 or sk_mesh["greedy"]))):
+        raise AssertionError(
+            f"mesh_mixed part 1c: {sk_mesh['bound']}/32 bound on the mesh, "
+            f"{sk_one['bound']}/32 on one device, placements equal "
+            f"{sk_mesh['placed'] == sk_one['placed']}, tiers "
+            f"{sk_mesh['tiers']}, {sk_mesh['scored']} scored and "
+            f"{sk_mesh['greedy']} greedy launches"
+        )
     rec = dict(
         mesh=[str(d) for d in mesh.devices], nodes=n_nodes, bound=bound,
         gang_bound=gang, solves=len(calls), modes=modes,
@@ -2002,10 +2229,57 @@ def mesh_mixed(mesh, gk, ck, pk, sk):
         fill_shard_kernel_launches=k4_fill, hi_bound=hi_bound,
         device_preemptions=preemptions, preempt_kernel_launches=k3,
         preempt_solves_by_tier=tiers_b,
-        part1b_seconds=time.perf_counter() - t1,
+        part1b_seconds=t2 - t1,
+        sinkhorn_bound=sk_mesh["bound"], sinkhorn_equal_one_device=True,
+        sinkhorn_scored_launches=sk_mesh["scored"],
+        part1c_seconds=time.perf_counter() - t2,
     )
     emit("mesh_mixed", **rec)
     return rec
+
+
+def sinkhorn_part_1c(gk, n_nodes, mesh, device=None):
+    """__graft_entry__.dryrun_multichip part 1c (:326-356): 32 pods of
+    500m/512Mi in sinkhorn mode, max_batch 64, on ``mesh`` or on one
+    ``device``; the pods are all queued before the first pop, so both runs
+    solve the same batch."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=64,
+                          mesh=mesh, device=device, async_binding=False,
+                          solver_mode="sinkhorn")
+    for i in range(n_nodes):
+        client.create_node(
+            make_node(f"n{i}").capacity(cpu="16", memory="32Gi", pods=40).obj())
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    scored0, greedy0 = gk.scored_launches, gk.launches
+    for i in range(32):
+        client.create_pod(
+            make_pod(f"sk{i}").container(cpu="500m", memory="512Mi").obj())
+    deadline = time.time() + 30
+    while sched.queue.active_count() < 32 and time.time() < deadline:
+        time.sleep(0.01)
+    bound = pump(sched, client, 32, prefix="sk", seconds=60)
+    pods, _ = client.list_pods()
+    out = dict(
+        bound=bound, placed={p.metadata.name: p.spec.node_name for p in pods},
+        scored=gk.scored_launches - scored0, greedy=gk.launches - greedy0,
+        tiers={k for k, v in sched.ladder.solves_by_tier.items() if v},
+        pods_fallback=sched.pods_fallback,
+    )
+    sched.stop()
+    informers.stop()
+    return out
 
 
 # -- phase 5: the burst -------------------------------------------------------
@@ -2287,6 +2561,309 @@ def burst(gk, device=None, mesh=None, sk=None):
     return rec
 
 
+# -- phases 11-12: churn in sinkhorn mode with hollow kubelets ----------------
+
+# benchmarks/config/performance-config.yaml:480-488 (ChurnSinkhorn/50000)
+# and :268-277 (RebalanceSinkhorn/500), with the defaults of :9-15 (32
+# CPU, 64Gi, 110 pods, 10 zones, max_batch 1,024), as
+# benchmarks/runner.py:1269-1296 runs the churn rounds
+CHURN_WORKLOADS = {
+    "ChurnSinkhorn/50000": dict(
+        nodes=50000, init=100000, measured=10000, rounds=5, delete=2000,
+        cpu=100, memory_mi=128, replay_init_every=4,
+    ),
+    "RebalanceSinkhorn/500": dict(
+        nodes=500, init=6000, measured=2000, rounds=4, delete=500,
+        cpu=2000, memory_mi=2048, replay_init_every=1,
+    ),
+}
+
+
+def churn_sinkhorn(gk, asg_mod, workload, device=None):
+    """A churn workload of the perf matrix in sinkhorn mode through the
+    port's entry points on the card, with ``HollowNodePool`` acking every
+    bind: the nodes, the init pods, then the measured pods in rounds, each
+    round first deleting bound pods (listed once, in list order, as the
+    runner does) and waiting for its own pods to bind. Every sinkhorn
+    batch's prior is timed on the card by CUDA events and its K1 scored
+    launch recorded; afterwards the recorded launches (every measured
+    one and every ``replay_init_every``-th init one) are replayed through
+    ``sinkhorn_commit`` on the card on their own prior and must be equal.
+    ``device="cpu"`` rehearses the phase on the CPU (every commit is then
+    the plain loop)."""
+    from kubernetes_tpu_torch.api.types import POD_RUNNING
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.kubelet import HollowNodePool
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    spec = CHURN_WORKLOADS[workload]
+    n_nodes = spec["nodes"]
+    cpu, mem = spec["cpu"], spec["memory_mi"]
+
+    def pods(prefix, count):
+        return [
+            make_pod(f"{prefix}-{i}")
+            .container(cpu=f"{cpu}m", memory=f"{mem}Mi").obj()
+            for i in range(count)
+        ]
+
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH,
+                          solver_mode="sinkhorn", device=device)
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    if (sched.device.type == "cuda") != on_card:
+        raise AssertionError(f"the scheduler solves on {sched.device}")
+    names = [f"node-{i}" for i in range(n_nodes)]
+    for i, name in enumerate(names):
+        client.create_node(
+            make_node(name).capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").obj()
+        )
+    hollow = HollowNodePool(client, names)
+    hollow.start()
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+
+    # time every prior, record every scored solve, count plain commits
+    orig_prior, orig_solve = asg_mod.sinkhorn_prior, gk.greedy_solve
+    orig_commit = gk.greedy_assign_compact
+    plan_events, k_events, records = [], [], []
+    state = dict(keep=spec["replay_init_every"], scored=0, plain=0)
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed_prior(*args, **kw):
+        start, end = events()
+        start.record()
+        out = orig_prior(*args, **kw)
+        end.record()
+        plan_events.append((start, end))
+        return out
+
+    def recording_solve(*args, config, prior=None):
+        if prior is None:
+            return orig_solve(*args, config=config)
+        start, end = events()
+        start.record()
+        out = orig_solve(*args, config=config, prior=prior)
+        end.record()
+        k_events.append((start, end))
+        state["scored"] += 1
+        if (state["scored"] - 1) % state["keep"] == 0:
+            records.append((args, prior, config, out))
+        return out
+
+    def counting_commit(*args, **kw):
+        state["plain"] += 1
+        return orig_commit(*args, **kw)
+
+    dispatched = []
+    orig_dispatch = sched._dispatch_solve
+
+    def recording_dispatch(*args, **kw):
+        p = orig_dispatch(*args, **kw)
+        if p is not None and all(p is not q for q in dispatched):
+            dispatched.append(p)
+        return p
+
+    asg_mod.sinkhorn_prior = timed_prior
+    gk.greedy_solve = recording_solve
+    gk.greedy_assign_compact = counting_commit
+    sched._dispatch_solve = recording_dispatch
+    gk.launches = 0  # the counts of THIS run of the main path
+    gk.scored_launches = 0
+    try:
+        init = pods("init", spec["init"])
+        watch = BindWatcher(server, [p.metadata.name for p in init])
+        sched.start()
+        t_init = time.perf_counter()
+        for lo in range(0, len(init), 1000):
+            client.create_pods_bulk(init[lo:lo + 1000])
+        if not watch.wait(900):
+            raise AssertionError("the init pods did not all bind")
+        watch.stop()
+        sched.wait_for_inflight_binds(timeout=60)
+        init_s = time.perf_counter() - t_init
+        init_batches = len(dispatched)
+        init_scored = state["scored"]
+        state["keep"] = 1  # every measured launch is replayed
+
+        tiers0 = dict(sched.ladder.solves_by_tier)
+        counters0 = dict(
+            fallbacks=counter_total(metrics.solver_fallbacks),
+            retries=counter_total(metrics.solve_retries),
+            pods_fallback=sched.pods_fallback,
+            envelope_fallbacks=sched.envelope_fallbacks,
+        )
+        stages0 = dict(sched.stage_seconds)
+        plans0 = len(plan_events)
+        measured = pods("measure", spec["measured"])
+        names_m = [p.metadata.name for p in measured]
+        watch = BindWatcher(server, names_m)
+        rounds = spec["rounds"]
+        chunks = [measured[r * len(measured) // rounds:
+                           (r + 1) * len(measured) // rounds]
+                  for r in range(rounds)]
+        listed, _ = client.list_pods()
+        victims = [p for p in listed if p.spec.node_name]
+        create_times, deleted, vi = {}, [], 0
+        start = time.perf_counter()
+        for chunk in chunks:
+            for _ in range(min(spec["delete"], len(victims) - vi)):
+                v = victims[vi]
+                vi += 1
+                client.delete_pod(v.metadata.namespace, v.metadata.name)
+                deleted.append(v.metadata.name)
+            now = time.perf_counter()
+            for p in chunk:
+                create_times[p.metadata.name] = now
+            client.create_pods_bulk(chunk)
+            want = {p.metadata.name for p in chunk}
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                with watch._cond:
+                    if want <= watch.bind_times.keys():
+                        break
+                time.sleep(0.01)
+        completed = watch.wait(300)
+        elapsed = time.perf_counter() - start
+        scored = state["scored"]
+        launches, scored_launches = gk.launches, gk.scored_launches
+        sched.wait_for_inflight_binds(timeout=60)
+        watch.stop()
+        total_live = spec["init"] - len(deleted) + spec["measured"]
+        deadline = time.time() + 300
+        running = 0
+        while time.time() < deadline:
+            listed, _ = client.list_pods()
+            running = sum(1 for p in listed if p.status.phase == POD_RUNNING)
+            if running == total_live:
+                break
+            time.sleep(0.5)
+    finally:
+        asg_mod.sinkhorn_prior = orig_prior
+        gk.greedy_solve = orig_solve
+        gk.greedy_assign_compact = orig_commit
+        sched._dispatch_solve = orig_dispatch
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    all_tiers = dict(sched.ladder.solves_by_tier)
+    listed, _ = client.list_pods()
+    nodes_listed, _ = client.list_nodes()
+    sched.stop()
+    hollow.stop()
+    informers.stop()
+
+    # placement: everything bound, nothing over capacity, the spread
+    placed = {p.metadata.name: p.spec.node_name for p in listed}
+    unbound = [nm for nm, node in placed.items() if not node]
+    per_node = {}
+    for node in placed.values():
+        if node:
+            per_node[node] = per_node.get(node, 0) + 1
+    cap_pods = min(110, 32000 // cpu, 64 * 1024 // mem)
+    over = {nd: c for nd, c in per_node.items() if c > cap_pods}
+    utils = [per_node.get(nd.metadata.name, 0) * cpu / 32000.0
+             for nd in nodes_listed]
+    mean = sum(utils) / len(utils)
+    std = (sum((u - mean) ** 2 for u in utils) / len(utils)) ** 0.5
+    bound_m = sum(1 for nm in names_m if placed.get(nm))
+    if not completed or bound_m != spec["measured"] or unbound:
+        raise AssertionError(
+            f"{workload}: {bound_m}/{spec['measured']} measured pods bound, "
+            f"{len(unbound)} live pods unbound"
+        )
+    if len(listed) != total_live or running != total_live:
+        raise AssertionError(
+            f"{workload}: {running}/{len(listed)} live pods acked Running, "
+            f"{total_live} expected"
+        )
+    if over:
+        raise AssertionError(f"{workload}: nodes over capacity: {list(over)[:3]}")
+    if set(k for k, v in all_tiers.items() if v) != {tier}:
+        raise AssertionError(f"{workload}: solves off the {tier} tier: {all_tiers}")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{workload}: a dispatch was solved off the {tier} tier")
+    if any(moved.values()):
+        raise AssertionError(f"{workload}: a fallback counter moved: {moved}")
+    # on the card every sinkhorn batch is one scored launch and no plain
+    # commit; on the CPU every batch is a plain commit
+    plain_want = 0 if on_card else len(dispatched)
+    if (scored != len(dispatched) or launches or state["plain"] != plain_want
+            or (on_card and scored_launches != len(dispatched))):
+        raise AssertionError(
+            f"{workload}: {scored_launches} scored launches, {launches} "
+            f"greedy launches and {state['plain']} plain commits for "
+            f"{len(dispatched)} sinkhorn batches"
+        )
+
+    # the recorded launches' replays through the plain loop on the card
+    t_replay = time.perf_counter()
+    for args, prior, config, out in records:
+        want = asg_mod.sinkhorn_commit(*args, prior, config=config)
+        if not all(torch.equal(o, w) for o, w in zip(out, want)):
+            raise AssertionError(f"{workload}: a batch differs from its replay")
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t_replay
+    plan_ms = [s.elapsed_time(e) for s, e in plan_events]
+    k_ms = [s.elapsed_time(e) for s, e in k_events]
+    measured_plans = plan_ms[plans0:]
+    lat = sorted(watch.bind_times[nm] - create_times[nm] for nm in names_m)
+    rec = dict(
+        workload=workload, nodes=n_nodes, init=spec["init"],
+        pods=spec["measured"], rounds=rounds, deleted=len(deleted),
+        bound=bound_m, seconds=elapsed,
+        pods_per_sec=spec["measured"] / elapsed,
+        p50_create_to_bind_s=lat[len(lat) // 2],
+        p99_create_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        batches=len(dispatched), init_batches=init_batches,
+        measured_batch_sizes=[p["b"] for p in dispatched[init_batches:]],
+        scored_kernel_launches=scored_launches, greedy_kernel_launches=launches,
+        plain_commits=state["plain"],
+        plan_seconds_total=sum(plan_ms) / 1e3,
+        plan_ms_mean=sum(plan_ms) / len(plan_ms),
+        measured_plan_seconds=sum(measured_plans) / 1e3,
+        scored_ms_mean=sum(k_ms) / len(k_ms),
+        scored_seconds_total=sum(k_ms) / 1e3,
+        solves_by_tier=tiers, counters_moved=moved, stage_seconds=stages,
+        live_pods=len(listed), running=running,
+        max_pods_per_node=max(per_node.values()),
+        utilization_cpu=dict(mean=mean, std=std, max=max(utils)),
+        replayed=len(records),
+        replayed_init=-(-init_scored // spec["replay_init_every"]),
+        replay_equal=True, replay_seconds=replay_s,
+        init_seconds=init_s, setup_seconds=t_init - t_setup,
+    )
+    emit("sinkhorn_churn", **rec)
+    records.clear()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -2315,6 +2892,7 @@ def main():
     from kubernetes_tpu_torch.ops import preempt_kernel as pk
     from kubernetes_tpu_torch.ops import preemption as pre_mod
     from kubernetes_tpu_torch.ops import shard_kernel as sk
+    from kubernetes_tpu_torch.ops import sinkhorn as sk_mod
     from kubernetes_tpu_torch.ops.mesh import NodeMesh
 
     t_start = time.perf_counter()
@@ -2327,6 +2905,7 @@ def main():
     build_s = build_kernels([gk, ck, pk, sk])
 
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
+    sk_timing, sk_max_err = sinkhorn_kernel_vs_twin(gk, asg_mod, sk_mod)
     c_timing, c_max_err = constrained_kernel_vs_twin(ck, asg_mod)
     p_timing, p_max_err = preempt_kernel_vs_twin(pk, pre_mod)
     _, s_timing, s_max_err = shard_kernel_vs_twin(sk)
@@ -2336,6 +2915,8 @@ def main():
     mesh = NodeMesh(["cuda:0"] * MESH_SHARDS)
     m_rec = burst(gk, mesh=mesh, sk=sk)
     mesh_mixed(mesh, gk, ck, pk, sk)
+    churn = churn_sinkhorn(gk, asg_mod, "ChurnSinkhorn/50000")
+    churn_sinkhorn(gk, asg_mod, "RebalanceSinkhorn/500")
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -2348,6 +2929,18 @@ def main():
         bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"],
         library_ms=None,  # no single PyTorch call computes this solve
+    ), dict(
+        name="greedy_solve_scored",
+        route="cuda",
+        source="kubernetes_tpu_torch/csrc/greedy_solve.cu",
+        replaces="kubernetes_tpu/ops/assignment.py:1576",
+        launches=churn["scored_kernel_launches"],
+        max_abs_err=sk_max_err,
+        ms=sk_timing["ms"],
+        plain_ms=sk_timing["plain_ms"],
+        bound_ms=sk_timing["bound_ms"],
+        bound_by=sk_timing["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this scan
     ), dict(
         name="constrained_solve",
         route="cuda",

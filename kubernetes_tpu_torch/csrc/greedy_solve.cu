@@ -50,6 +50,20 @@
 // shared memory 32 pods at a time, behind two CTA barriers per chunk.
 // An inactive pod is a skip that every CTA takes alike. The loop is
 // solve_common.cuh greedy_cluster_solve, which K4's batch entry runs too.
+//
+// The scored entry (a prior operand; the kScored instantiations):
+// replaces kubernetes_tpu/ops/assignment.py:1576 sinkhorn_assign's commit
+// scan -- an XLA lax.scan, not a Pallas kernel -- whose step is the step
+// above with score = where(feasible, prior[t] + combined_score, -inf).
+// Its plain PyTorch version is ops/assignment.py::sinkhorn_commit. Bound:
+// K1's own bytes and operations plus the [B, N] f32 prior, B * N * 4
+// bytes read once (205 MB at ChurnSinkhorn/50000's 1,024 x 50,048: 0.06
+// ms at 3.35 TB/s), so the chain of dependent steps still bounds it. The
+// design changes nothing else: each step reads one coalesced slice of
+// the prior row per CTA (thread i, row lo + i), each value loaded before
+// its row's fit test so that the load's latency overlaps the test and
+// the score, and adds it with one round-to-nearest add; the greedy
+// instantiations compile without it.
 
 #include "solve_common.cuh"
 
@@ -74,7 +88,7 @@ __host__ __device__ int slice_cap(int n, int cluster) {
   return (n + cluster - 1) / cluster;
 }
 
-template <bool kResident>
+template <bool kResident, bool kScored>
 __global__ void __launch_bounds__(kClusterThreads, 1) greedy_cluster_kernel(Args a) {
   extern __shared__ int s_dyn[];
   __shared__ ClusterSlots s_slots[2];
@@ -86,8 +100,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1) greedy_cluster_kernel(Args
       a.alloc, a.req_in, a.req_out, a.nzr_in, a.nzr_out, a.valid, a.rows,
       a.n, slice_lo(rank, cluster, a.n), slice_lo(rank + 1, cluster, a.n),
       0, slice_cap(a.n, cluster)};
-  greedy_cluster_solve<kResident>(v, a.pods, s_dyn, s_slots, cluster, rank,
-                                  [](int, const unsigned long long*) {});
+  greedy_cluster_solve<kResident, kScored>(
+      v, a.pods, s_dyn, s_slots, cluster, rank,
+      [](int, const unsigned long long*) {});
 }
 
 }  // namespace
@@ -100,28 +115,34 @@ extern "C" int greedy_solve_step_cycles(unsigned long long* out) {
 
 // static shared memory of one CTA of the kernel (the slots), or -1
 extern "C" int greedy_solve_static_smem(int resident) {
-  return resident ? static_smem_bytes(greedy_cluster_kernel<true>)
-                  : static_smem_bytes(greedy_cluster_kernel<false>);
+  return resident ? static_smem_bytes(greedy_cluster_kernel<true, false>)
+                  : static_smem_bytes(greedy_cluster_kernel<false, false>);
 }
 
 // how many clusters of this shape the card can hold at once (0: none)
 extern "C" int greedy_solve_max_clusters(int cluster, int threads, int smem,
-                                         int resident) {
+                                         int resident, int scored) {
   if (!valid_cluster_shape(cluster, threads)) return 0;
+  if (scored) {
+    return resident
+        ? cluster_occupancy(greedy_cluster_kernel<true, true>, cluster, threads, smem)
+        : cluster_occupancy(greedy_cluster_kernel<false, true>, cluster, threads, smem);
+  }
   return resident
-      ? cluster_occupancy(greedy_cluster_kernel<true>, cluster, threads, smem)
-      : cluster_occupancy(greedy_cluster_kernel<false>, cluster, threads, smem);
+      ? cluster_occupancy(greedy_cluster_kernel<true, false>, cluster, threads, smem)
+      : cluster_occupancy(greedy_cluster_kernel<false, false>, cluster, threads, smem);
 }
 
 // Launches one cluster of `cluster` CTAs of `threads` threads with `smem`
-// bytes of dynamic shared memory each (ops/cluster_plan.plan_launch).
-// Returns the launch's cudaError_t, or cudaErrorInvalidValue when the
-// plan does not match what the kernel needs.
+// bytes of dynamic shared memory each (ops/cluster_plan.plan_launch); a
+// non-null `prior` ([B, N] f32) launches the scored entry. Returns the
+// launch's cudaError_t, or cudaErrorInvalidValue when the plan does not
+// match what the kernel needs.
 extern "C" int greedy_solve_launch(
     const void* alloc, const void* req_in, const void* nzr_in,
     const void* valid, const void* pod_req, const void* pod_nzr,
     const void* rows, const void* midx, const void* active,
-    void* asg, void* req_out, void* nzr_out,
+    void* asg, void* req_out, void* nzr_out, const void* prior,
     int n, int r, int b, int u,
     int w_least, int w_balanced, int w_most,
     int cluster, int threads, int resident, int smem, void* stream) {
@@ -139,9 +160,15 @@ extern "C" int greedy_solve_launch(
                  static_cast<const int*>(pod_nzr),
                  static_cast<const int*>(midx),
                  static_cast<const uint8_t*>(active), static_cast<int*>(asg),
-                 r, b, u, w_least, w_balanced, w_most}};
+                 r, b, u, w_least, w_balanced, w_most,
+                 static_cast<const float*>(prior), n}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prior != nullptr) {
+    return resident
+        ? launch_cluster(greedy_cluster_kernel<true, true>, cluster, threads, smem, s, args)
+        : launch_cluster(greedy_cluster_kernel<false, true>, cluster, threads, smem, s, args);
+  }
   return resident
-      ? launch_cluster(greedy_cluster_kernel<true>, cluster, threads, smem, s, args)
-      : launch_cluster(greedy_cluster_kernel<false>, cluster, threads, smem, s, args);
+      ? launch_cluster(greedy_cluster_kernel<true, false>, cluster, threads, smem, s, args)
+      : launch_cluster(greedy_cluster_kernel<false, false>, cluster, threads, smem, s, args);
 }

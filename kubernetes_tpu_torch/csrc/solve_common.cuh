@@ -465,6 +465,10 @@ struct GreedyPods {
   int* asg;               // [B] out: the winner's cluster-wide index or -1
   int r, b, u;
   int w_least, w_balanced, w_most;
+  // the scored entry (kScored): [B, prior_n] f32, pod t's row added to
+  // the resource score of cluster-wide index i at prior[t * prior_n + i]
+  const float* prior = nullptr;
+  int prior_n = 0;
 };
 
 using ClusterSlots = unsigned long long[kMaxCluster * kClusterWarps];
@@ -472,7 +476,11 @@ using ClusterSlots = unsigned long long[kMaxCluster * kClusterWarps];
 // The whole batch; call from every thread of every CTA of the cluster
 // (s_dyn: greedy_smem_bytes of dynamic shared memory; s_slots: a static
 // shared array, the same in every CTA). Ends with a cluster barrier.
-template <bool kResident, class OnStep>
+// kScored (K1's scored entry, the sinkhorn commit scan): a feasible
+// row's score is prior[t][i] + the resource score, rounded once, where
+// i is its cluster-wide index; each step reads one coalesced slice of
+// the prior row per CTA and nothing else changes.
+template <bool kResident, bool kScored = false, class OnStep>
 __device__ __forceinline__ void greedy_cluster_solve(
     const GreedyRows& v, const GreedyPods& a, int* s_dyn,
     ClusterSlots* s_slots, int cluster, int rank, OnStep on_step) {
@@ -545,6 +553,10 @@ __device__ __forceinline__ void greedy_cluster_solve(
       int best_j = kNoIndex;
       for (int l = tid; l < len; l += nt) {
         const int j = lo + l;
+        // the scored entry's prior, loaded first so that its latency
+        // overlaps the fit test and the score
+        const float pv =
+            kScored ? a.prior[static_cast<size_t>(t) * a.prior_n + v.off + j] : 0.0f;
         const bool ok = kResident ? ((s_bits[l] >> i) & 1u) != 0u
                                   : (v.valid[j] && mrow[j]);
         if (!ok) continue;
@@ -553,11 +565,12 @@ __device__ __forceinline__ void greedy_cluster_solve(
         if (!fits_node_strided(al, q, stride, preq, r, all_zero)) continue;
         const int n0 = kResident ? s_nzr[l] : v.nzr_out[j * 2];
         const int n1 = kResident ? s_nzr[cap + l] : v.nzr_out[j * 2 + 1];
-        const float score = combined_score(
+        float score = combined_score(
             static_cast<float>(al[0]), static_cast<float>(al[stride]),
             static_cast<float>(add_wrap(n0, p0)),
             static_cast<float>(add_wrap(n1, p1)),
             a.w_least, a.w_balanced, a.w_most);
+        if (kScored) score = __fadd_rn(pv, score);  // `row + score_dyn`
         if (score > best) {  // a thread's rows ascend: the first max is kept
           best = score;
           best_j = j;

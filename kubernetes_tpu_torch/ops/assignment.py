@@ -26,6 +26,11 @@ batch with constraint or score-dynamic families, the constrained solve
 their plain PyTorch versions: a Python loop over pods, each step
 parallel over nodes, taken only for tensors on the CPU.
 
+The sinkhorn mode (``sinkhorn_assign``) computes an entropic-OT prior
+over the batch as torch ops (``sinkhorn_prior``, ops/sinkhorn.py), then
+commits through the greedy kernel's scored entry on the card (its plain
+version: ``sinkhorn_commit``).
+
 On a node-sharded mesh (ops/mesh.py ``NodeMesh``; ``solve_packed(...,
 mesh=)``) a greedy batch goes to the mesh kernel K4 instead
 (``_mesh_greedy``; ops/shard_kernel.py, csrc/shard_candidate.cu): when one
@@ -47,6 +52,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.ops import sinkhorn
 from kubernetes_tpu_torch.ops.mesh import (
     NodeMesh,
     ShardedRows,
@@ -127,12 +133,14 @@ def _greedy_assign_impl(
     static_mask: torch.Tensor,  # [B, N] bool host-side label filters
     active: torch.Tensor,  # [B] bool (False for padding rows)
     config: GreedyConfig = GreedyConfig(),
+    prior=None,  # [B, N] float32: the sinkhorn commit scan's prior
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of the greedy solve kernel: one node-parallel
     step per pod, in order. Returns (assignment [B] int32 node index or
     NO_NODE, requested' [N, R], nzr' [N, 2]) -- the post-batch node
     state so the host can incrementally reconcile instead of repacking.
-    The inputs are never written."""
+    The inputs are never written. With ``prior`` a feasible node's score
+    is ``prior[t] + the resource score`` (the kernel's scored entry)."""
     caps = allocatable[:, :2]  # (milliCPU, memKiB) capacities for scorers
     n = allocatable.shape[0]
     node_iota = torch.arange(n, dtype=torch.int32, device=allocatable.device)
@@ -148,6 +156,8 @@ def _greedy_assign_impl(
         fits = _fits(free, pod_req)
         feasible = fits & static_mask[t] & valid
         score = _combined_score(caps, nzr_state, p_nzr, config)
+        if prior is not None:  # the reference's `row + score_dyn`
+            score = prior[t] + score
 
         score = torch.where(feasible, score, -torch.inf)
         choice = torch.argmax(score).to(torch.int32)  # first max wins
@@ -178,6 +188,7 @@ def greedy_assign_compact(
     mask_index: torch.Tensor,  # [B] int32 row index per pod
     active: torch.Tensor,
     config: GreedyConfig = GreedyConfig(),
+    prior=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """greedy_assign with the static mask shipped deduplicated (see
     host_masks.static_mask_compact) and expanded by a gather. Row
@@ -185,8 +196,199 @@ def greedy_assign_compact(
     midx = mask_index.long().clamp(0, max(mask_rows.shape[0] - 1, 0))
     return _greedy_assign_impl(
         allocatable, requested, nzr, valid, pod_requests, pod_nzr,
-        mask_rows[midx], active, config=config,
+        mask_rows[midx], active, config=config, prior=prior,
     )
+
+
+def _greedy_assign_scored_impl(
+    allocatable: torch.Tensor,  # [N, R] int32
+    requested: torch.Tensor,  # [N, R] int32
+    valid: torch.Tensor,  # [N] bool
+    pod_requests: torch.Tensor,  # [B, R] int32, solve order
+    static_mask: torch.Tensor,  # [B, N] bool
+    active: torch.Tensor,  # [B] bool
+    score_matrix: torch.Tensor,  # [B, N] float32 precomputed (e.g. Sinkhorn)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-replay commit scan over a PRECOMPUTED score matrix:
+    feasibility is re-checked exactly per step, only the ranking comes
+    from the matrix. Returns (assignment, requested'); the inputs are
+    never written."""
+    n = allocatable.shape[0]
+    dev = allocatable.device
+    node_iota = torch.arange(n, dtype=torch.int32, device=dev)
+    no_node = torch.tensor(NO_NODE, dtype=torch.int32, device=dev)
+    req_state = requested
+    assignments = []
+    for t in range(pod_requests.shape[0]):
+        pod_req = pod_requests[t]
+        feasible = _fits(allocatable - req_state, pod_req) & static_mask[t] & valid
+        score = torch.where(feasible, score_matrix[t], -torch.inf)
+        choice = torch.argmax(score).to(torch.int32)  # first max wins
+        placed = feasible.any() & active[t]
+        assignments.append(torch.where(placed, choice, no_node))
+        chosen = ((node_iota == choice) & placed).to(torch.int32)
+        req_state = req_state + chosen[:, None] * pod_req[None, :]
+    if assignments:
+        out = torch.stack(assignments)
+    else:
+        out = torch.zeros(0, dtype=torch.int32, device=dev)
+    return out, req_state
+
+
+greedy_assign_scored = _greedy_assign_scored_impl
+
+
+def _fits_batch(free: torch.Tensor, pod_requests: torch.Tensor) -> torch.Tensor:
+    """``_fits`` for every pod of a batch at once: [N, R] free x [B, R]
+    requests -> [B, N] bool, one dimension at a time, so no [B, N, R]
+    tensor is ever made (at 1,024 pods x 50,048 rows x R=4 that would be
+    ~800 MB of int32)."""
+    r = pod_requests.shape[1]
+    cols = torch.arange(r, device=pod_requests.device)
+    nonpods = torch.where(cols[None, :] != _PODS_COL, pod_requests, 0)
+    all_zero = nonpods.amax(dim=1) == 0
+    fits_all = None
+    fits_pods = None
+    for d in range(r):
+        ok = pod_requests[:, d, None] <= free[None, :, d]
+        if d >= NUM_FIXED_DIMS:
+            # scalar columns are checked only when the pod requests them
+            ok = ok | (pod_requests[:, d] == 0)[:, None]
+        fits_all = ok if fits_all is None else fits_all & ok
+        if d == _PODS_COL:
+            fits_pods = ok
+    return torch.where(all_zero[:, None], fits_pods, fits_all)
+
+
+def sinkhorn_plan_inputs(
+    allocatable: torch.Tensor,  # [N, R] int32
+    requested: torch.Tensor,  # [N, R] int32
+    nzr: torch.Tensor,  # [N, 2] int32
+    valid: torch.Tensor,  # [N] bool
+    pod_requests: torch.Tensor,  # [B, R] int32, solve order
+    pod_nzr: torch.Tensor,  # [B, 2] int32
+    mask_rows: torch.Tensor,  # [U, N] deduplicated static-mask rows
+    mask_index: torch.Tensor,  # [B] int32
+    active: torch.Tensor,  # [B] bool
+    config: GreedyConfig = GreedyConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the sinkhorn plan is computed from (the first part of the JAX
+    package's ``sinkhorn_assign``): the batch-start resource scores [B,
+    N] f32, the batch-start feasibility [B, N] bool, and the column
+    capacities [N] f32 -- the free pod slots cut to a fair share of the
+    batch's mass over the columns it can use (2 x mass / usable columns,
+    at least 1). Plain torch ops on the inputs' device."""
+    midx = mask_index.long().clamp(0, max(mask_rows.shape[0] - 1, 0))
+    sm = mask_rows[midx]  # [B, N]
+    caps = allocatable[:, :2]
+    # batch-start scores + feasibility feed the global plan; the commit
+    # scan re-checks fit exactly per step
+    base = torch.zeros(sm.shape, dtype=torch.float32, device=sm.device)
+    for weight, scorer in (
+        (config.least_allocated_weight, least_allocated_score),
+        (config.balanced_allocation_weight, balanced_allocation_score),
+        (config.most_allocated_weight, most_allocated_score),
+    ):
+        if weight:
+            base = base + weight * scorer(caps, nzr, pod_nzr)
+    feasible0 = (
+        _fits_batch(allocatable - requested, pod_requests) & sm & valid[None, :]
+    )
+    slots = torch.clamp(
+        (allocatable[:, _PODS_COL] - requested[:, _PODS_COL]).to(torch.float32),
+        min=0.0,
+    )
+    # Balance-seeking column marginals: raw free pod slots are ~110 per
+    # node, so with pods << slots the capacity cap never binds and the
+    # score prior concentrates mass. Capping each column near the uniform
+    # share of the columns THIS batch can use makes the plan spread,
+    # while 2x headroom keeps genuinely better nodes attractive.
+    batch_mass = active.to(torch.float32).sum()
+    usable = (slots > 0) & feasible0.any(dim=0)
+    fair_share = 2.0 * batch_mass / torch.clamp(
+        usable.to(torch.float32).sum(), min=1.0
+    )
+    slots = torch.minimum(slots, torch.clamp(fair_share, min=1.0))
+    return base, feasible0, slots
+
+
+def sinkhorn_prior(
+    allocatable: torch.Tensor,
+    requested: torch.Tensor,
+    nzr: torch.Tensor,
+    valid: torch.Tensor,
+    pod_requests: torch.Tensor,
+    pod_nzr: torch.Tensor,
+    mask_rows: torch.Tensor,
+    mask_index: torch.Tensor,
+    active: torch.Tensor,
+    config: GreedyConfig = GreedyConfig(),
+    iters: int = sinkhorn.ITERS,
+) -> torch.Tensor:
+    """The sinkhorn mode's prior: the entropic-OT plan over the whole
+    batch (ops/sinkhorn.py) from ``sinkhorn_plan_inputs``, returned
+    1e4-scaled as [B, N] float32 on the inputs' device."""
+    score, feasible, slots = sinkhorn_plan_inputs(
+        allocatable, requested, nzr, valid, pod_requests, pod_nzr,
+        mask_rows, mask_index, active, config=config,
+    )
+    return sinkhorn.refine_scores(score, feasible, slots, active, iters=iters)
+
+
+def sinkhorn_commit(
+    allocatable: torch.Tensor,  # [N, R] int32
+    requested: torch.Tensor,  # [N, R] int32
+    nzr: torch.Tensor,  # [N, 2] int32
+    valid: torch.Tensor,  # [N] bool
+    pod_requests: torch.Tensor,  # [B, R] int32, solve order
+    pod_nzr: torch.Tensor,  # [B, 2] int32
+    mask_rows: torch.Tensor,  # [U, N] deduplicated static-mask rows
+    mask_index: torch.Tensor,  # [B] int32
+    active: torch.Tensor,  # [B] bool
+    prior: torch.Tensor,  # [B, N] float32 (sinkhorn_prior)
+    config: GreedyConfig = GreedyConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sinkhorn commit scan, the plain version of the greedy-solve
+    kernel's scored entry (ops/greedy_kernel.py): the greedy scan with
+    the score ``prior[t] + the dynamic resource score`` over the feasible
+    rows, the lowest index winning ties. The dynamic score breaks the
+    ties of near-uniform plans with within-batch load feedback. Returns
+    (assignment [B] int32, requested' [N, R], nzr' [N, 2]); the inputs
+    are never written."""
+    return greedy_assign_compact(
+        allocatable, requested, nzr, valid, pod_requests, pod_nzr,
+        mask_rows, mask_index, active, config=config, prior=prior,
+    )
+
+
+def sinkhorn_assign(
+    allocatable: torch.Tensor,
+    requested: torch.Tensor,
+    nzr: torch.Tensor,
+    valid: torch.Tensor,
+    pod_requests: torch.Tensor,
+    pod_nzr: torch.Tensor,
+    mask_rows: torch.Tensor,  # [U, N] deduplicated static-mask rows
+    mask_index: torch.Tensor,  # [B] int32
+    active: torch.Tensor,
+    config: GreedyConfig = GreedyConfig(),
+    iters: int = sinkhorn.ITERS,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Globally-aware assignment for the churn/rebalance regime
+    (BASELINE config #5): the entropic-OT prior over the whole batch
+    (``sinkhorn_prior``) replaces the myopic per-step ranking, then the
+    EXACT capacity-replay commit scan enforces feasibility step by step
+    -- on the card the greedy-solve kernel's scored entry, on the CPU
+    ``sinkhorn_commit`` (ops/greedy_kernel.greedy_solve decides). Same
+    signature family as greedy_assign_compact."""
+    from kubernetes_tpu_torch.ops.greedy_kernel import greedy_solve
+
+    common = (
+        allocatable, requested, nzr, valid, pod_requests, pod_nzr,
+        mask_rows, mask_index, active,
+    )
+    prior = sinkhorn_prior(*common, config=config, iters=iters)
+    return greedy_solve(*common, config=config, prior=prior)
 
 
 #: family tuple sizes for the packed constrained layout (the order
@@ -711,7 +913,8 @@ def _packed_solve_tail(
     ops/constrained_kernel.constrained_solve decide). A constrained
     batch's family tensors ride the buffer as ``sp0..sp6``,
     ``af0..af13`` and ``sc0..sc19``; absent families arrive as
-    ConstPiece constants."""
+    ConstPiece constants. A sinkhorn batch computes its prior as torch
+    ops, then commits through K1's scored entry (``sinkhorn_assign``)."""
     common = (
         alloc, req_state, nzr_state, valid, arrs["req"], arrs["nzr"],
         arrs["rows"].to(torch.bool), arrs["midx"],
@@ -729,6 +932,8 @@ def _packed_solve_tail(
             tuple(arrs[f"sc{i}"] for i in range(_N_SCORING)),
             config=config, rows=rows,
         )
+    elif mode == "sinkhorn":
+        assignment, req_out, nzr_out = sinkhorn_assign(*common, config=config)
     else:
         from kubernetes_tpu_torch.ops.greedy_kernel import greedy_solve
 
@@ -909,11 +1114,12 @@ def _solve_packed_mesh(
     columns). The resident state (ShardedRows, or node-sized pieces in
     the buffer on a cold upload) stays on its devices; row patches apply
     shard by shard (``shard_local_row_set``). A greedy batch runs K4
-    (``_mesh_greedy``). A constrained batch gathers the
+    (``_mesh_greedy``). A constrained or sinkhorn batch gathers the
     state onto the first device, runs ``constrained_solve`` (K2 on the
-    card) and splits req'/nzr' back: the function the JAX mesh computes
-    on its GSPMD twin. Returns (assignment [B] int32 on the first
-    device, req', nzr', alloc, valid as ShardedRows)."""
+    card) or ``sinkhorn_assign`` (the prior, then K1's scored entry on
+    the card) and splits req'/nzr' back: the function the JAX mesh
+    computes on its GSPMD twin. Returns (assignment [B] int32 on the
+    first device, req', nzr', alloc, valid as ShardedRows)."""
     by_name = dict(pieces)
     rows_host = np.ascontiguousarray(np.asarray(by_name["rows"]).astype(bool))
     u, n = rows_host.shape
@@ -978,18 +1184,21 @@ def _solve_packed_mesh(
                 )
     alloc_out = ShardedRows(mesh, alloc)
     valid_out = ShardedRows(mesh, valid)
-    if mode == "constrained":
+    if mode in ("constrained", "sinkhorn"):
         first = mesh.first
-        from kubernetes_tpu_torch.ops.constrained_kernel import (
-            constrained_rows,
-        )
+        live = None
+        if mode == "constrained":
+            from kubernetes_tpu_torch.ops.constrained_kernel import (
+                constrained_rows,
+            )
 
+            live = constrained_rows(by_name)
         arrs = dict(arrs_by_group[0])  # the first shard's device
         arrs["rows"] = torch.cat([r.to(first) for r in shard_rows], dim=1)
         assignment, req_full, nzr_full, _, _ = _packed_solve_tail(
             arrs, alloc_out.gather(), valid_out.gather(),
             ShardedRows(mesh, req).gather(), ShardedRows(mesh, nzr).gather(),
-            config, mode, constrained_rows(by_name),
+            config, mode, live,
         )
         return (
             assignment, ShardedRows.split(mesh, req_full),
@@ -1197,11 +1406,8 @@ def solve_packed(
     (``_solve_packed_mesh``): the resident inputs and the returned
     req'/nzr'/alloc/valid are ShardedRows, and ``device`` is the mesh's
     own. The int16 carry is off on a mesh, as in the JAX package."""
-    if mode not in ("greedy", "constrained"):
-        raise ValueError(
-            f"solve mode {mode!r} is not ported yet: the sinkhorn solve "
-            "arrives in a later slice of the port"
-        )
+    if mode not in ("greedy", "constrained", "sinkhorn"):
+        raise ValueError(f"unknown solve mode {mode!r}")
     if mesh is not None:
         if compress:
             raise ValueError("the int16 carry is off on a mesh")

@@ -8,6 +8,13 @@ cluster works. The kernel's plain PyTorch version is
 ``_greedy_assign_impl``): ``greedy_solve`` takes it only for tensors that
 lie on the CPU. A tensor on the card launches the kernel or raises.
 
+The scored entry (``greedy_solve(..., prior=)``) is the same kernel with
+a ``[B, N]`` float32 prior added to every feasible row's score: the
+sinkhorn mode's commit scan (the JAX package's ``sinkhorn_assign`` runs it
+as an XLA scan, not a Pallas kernel). Its plain version is
+``ops/assignment.sinkhorn_commit``; its launches are counted apart, in
+``scored_launches``.
+
 Each launch is one cluster planned by ``plan_for`` (``ops/cluster_plan``):
 the largest cluster the card admits, and the node slices resident in
 shared memory when they fit, streamed from device memory otherwise.
@@ -62,6 +69,8 @@ def plan_for(n: int, r: int, cluster: int, static_bytes: int = 0) -> LaunchPlan:
 builds = 0
 #: kernel launches: incremented where the kernel is launched, nowhere else
 launches = 0
+#: launches of the scored entry (a prior operand), counted apart
+scored_launches = 0
 #: what the last build did: {"seconds", "command", "log", "library"}
 last_build: dict = {}
 #: the plan of the last launch
@@ -84,11 +93,11 @@ def build() -> ctypes.CDLL:
         lib, info = build_library("greedy_solve")
         fn = lib.greedy_solve_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p
         ]
         lib.greedy_solve_max_clusters.restype = ctypes.c_int
-        lib.greedy_solve_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.greedy_solve_max_clusters.argtypes = [ctypes.c_int] * 5
         lib.greedy_solve_static_smem.restype = ctypes.c_int
         lib.greedy_solve_static_smem.argtypes = [ctypes.c_int]
         static = [lib.greedy_solve_static_smem(k) for k in (0, 1)]
@@ -101,15 +110,22 @@ def build() -> ctypes.CDLL:
         return lib
 
 
+def _check_prior(prior, b: int, n: int, device):
+    """The scored entry's prior: [B, N] float32 on the solve's device."""
+    return _check(prior, "prior", torch.float32, (b, n), device)
+
+
 def greedy_solve_cuda(
     allocatable, requested, nzr, valid, pod_requests, pod_nzr,
     mask_rows, mask_index, active, config: GreedyConfig = GreedyConfig(),
+    prior=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream (no synchronize). Every
     operand must already be on the card with the kernel's dtypes: int32
-    state and indices, bool masks. Returns fresh (assignment [B] int32,
-    requested' [N, R], nzr' [N, 2]); the inputs are never written."""
-    global launches, last_plan
+    state and indices, bool masks, a float32 ``prior`` [B, N] for the
+    scored entry. Returns fresh (assignment [B] int32, requested' [N, R],
+    nzr' [N, 2]); the inputs are never written."""
+    global launches, scored_launches, last_plan
     device = allocatable.device
     if device.type != "cuda":
         raise KernelError(f"greedy_solve_cuda needs CUDA tensors, got {device}")
@@ -128,6 +144,9 @@ def greedy_solve_cuda(
         _check(mask_index, "mask_index", i32, (b,), device),
         _check(active, "active", bl, (b,), device),
     ]
+    scored = prior is not None
+    if scored:
+        prior = _check_prior(prior, b, n, device)
     asg = torch.empty(b, dtype=i32, device=device)
     req_out = torch.empty((n, r), dtype=i32, device=device)
     nzr_out = torch.empty((n, 2), dtype=i32, device=device)
@@ -138,11 +157,12 @@ def greedy_solve_cuda(
         return asg, req_out, nzr_out
     lib = build()
     with torch.cuda.device(device):
-        plan = _plan(lib, n, r)
+        plan = _plan(lib, n, r, scored)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.greedy_solve_launch(
             *(t.data_ptr() for t in ops),
             asg.data_ptr(), req_out.data_ptr(), nzr_out.data_ptr(),
+            prior.data_ptr() if scored else None,
             n, r, b, u,
             int(config.least_allocated_weight),
             int(config.balanced_allocation_weight),
@@ -151,36 +171,56 @@ def greedy_solve_cuda(
             stream,
         )
     if err != 0:
-        raise KernelError(f"greedy_solve_kernel launch failed: cudaError {err}")
-    launches += 1
+        entry = "scored entry" if scored else "kernel"
+        raise KernelError(f"greedy_solve {entry} launch failed: cudaError {err}")
+    if scored:
+        scored_launches += 1
+    else:
+        launches += 1
     last_plan = plan
     return asg, req_out, nzr_out
 
 
-def _plan(lib, n: int, r: int) -> LaunchPlan:
+def _plan(lib, n: int, r: int, scored: bool = False) -> LaunchPlan:
     """The plan at the largest cluster the current card admits."""
+
+    def max_clusters(cluster, threads, smem, resident):
+        return lib.greedy_solve_max_clusters(
+            cluster, threads, smem, resident, int(scored)
+        )
+
     return choose_plan(
         lambda c: plan_for(n, r, c, _static_bytes),
-        card_admits(lib.greedy_solve_max_clusters, _admitted, torch.cuda.current_device()),
+        card_admits(max_clusters, _admitted.setdefault(scored, {}),
+                    torch.cuda.current_device()),
     )
 
 
 def greedy_solve(
     allocatable, requested, nzr, valid, pod_requests, pod_nzr,
     mask_rows, mask_index, active, config: GreedyConfig = GreedyConfig(),
+    prior=None,
 ):
     """Drop-in for greedy_assign_compact: the kernel for tensors on the
-    card, the plain version for tensors on the CPU, an error otherwise."""
+    card, the plain version for tensors on the CPU, an error otherwise.
+    With ``prior`` ([B, N] float32 on the same device) the scored entry:
+    the kernel's scored launch on the card, the plain loop with the prior
+    (``sinkhorn_commit``) on the CPU."""
     kind = allocatable.device.type
     if kind == "cuda":
         return greedy_solve_cuda(
             allocatable, requested, nzr, valid, pod_requests, pod_nzr,
-            mask_rows, mask_index, active, config=config,
+            mask_rows, mask_index, active, config=config, prior=prior,
         )
     if kind == "cpu":
+        if prior is not None:
+            prior = _check_prior(
+                prior, pod_requests.shape[0], allocatable.shape[0],
+                allocatable.device,
+            )
         return greedy_assign_compact(
             allocatable, requested, nzr, valid, pod_requests, pod_nzr,
-            mask_rows, mask_index, active, config=config,
+            mask_rows, mask_index, active, config=config, prior=prior,
         )
     raise KernelError(f"no greedy solver for device type {kind!r}")
 

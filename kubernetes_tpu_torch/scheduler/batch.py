@@ -23,7 +23,9 @@ reference runs unsupported pods through extenders.
 In this port each solve is ONE hand-written CUDA kernel on torch
 tensors resident on the card: the greedy solve (ops/greedy_kernel.py)
 and, for a batch with spread, affinity, host-port or score-dynamic
-families, the constrained solve (ops/constrained_kernel.py). On a
+families, the constrained solve (ops/constrained_kernel.py). In the
+sinkhorn mode an unconstrained batch computes its entropic-OT prior as
+torch ops and commits through the greedy kernel's scored entry. On a
 node-sharded mesh (``mesh=``, ops/mesh.py) the resident state lives
 sharded and a greedy batch solves through K4, the mesh kernel
 (ops/shard_kernel.py): one launch per batch when one device holds every
@@ -523,13 +525,19 @@ class BatchScheduler(Scheduler):
         **kwargs,
     ) -> None:
         """``solver_mode``: "greedy" replays the sequential argmax exactly
-        (parity mode); the "sinkhorn" mode is not ported yet.
+        (parity mode); "sinkhorn" adds the entropic-OT global prior for
+        the churn/rebalance regime (ops/sinkhorn.py) on unconstrained
+        batches: the prior as torch ops, the commit scan through the
+        greedy kernel's scored entry on the card.
 
         ``mesh``: an optional ``ops.mesh.NodeMesh``: the resident node
         state lives sharded over its devices (ShardedRows), a greedy
         batch solves through the shard-candidate kernel K4 with a
         best-of-shards combine per pod, a constrained batch through K2
-        on the gathered state, and ``self.device`` is the mesh's first
+        and a sinkhorn batch through its prior and K1's scored entry,
+        both on the state gathered onto the first device (the function
+        the JAX mesh computes on its GSPMD twin), and ``self.device`` is
+        the mesh's first
         device (where assignments, the preemption wave and warmup's
         extra kernels run). The int16 carry is off on a mesh, as in the
         JAX package.
@@ -538,12 +546,7 @@ class BatchScheduler(Scheduler):
         the card (``"cuda"``) unless the caller names the CPU; with no
         visible card the default raises. With a mesh it must be None or
         the mesh's first device."""
-        if solver_mode == "sinkhorn":
-            raise ValueError(
-                "solver_mode='sinkhorn' is not ported yet: it arrives in a "
-                "later slice of the port (ROADMAP Queue 1 item 7)"
-            )
-        if solver_mode != "greedy":
+        if solver_mode not in ("greedy", "sinkhorn"):
             raise ValueError(f"unknown solver_mode {solver_mode!r}")
         self.mesh = mesh
         self.device = solve_device(device, mesh)
@@ -4000,7 +4003,8 @@ class BatchScheduler(Scheduler):
         """Build the solver kernels and run the three packed-upload
         layouts the run loop can hit (cold: static + carry ride the
         buffer; carry refresh; steady carry reuse with the delta-scatter
-        slots) once each, for the greedy and the constrained solve, and
+        slots) once each, for the solver mode (greedy, or sinkhorn: its
+        prior and K1's scored entry) and the constrained solve, and
         the victim search once (when a Preemptor is wired), so no
         measured batch pays a kernel build or a first-use cost (the
         reference harness similarly schedules warm-up pods before

@@ -867,10 +867,16 @@ def new_scheduler(
         and getattr(bind_ack_config, "enabled", False)
         and client is not None
     ):
-        raise ValueError(
-            "bindAck is not ported yet: the bind-ack ledger arrives in a "
-            "later slice of the port (ROADMAP Queue 1 item 8)"
+        from kubernetes_tpu_torch.scheduler.bindack import BindAckTracker
+
+        sched.bind_ack_tracker = BindAckTracker(
+            client,
+            ack_timeout_seconds=bind_ack_config.ack_timeout_seconds,
+            sweep_interval_seconds=bind_ack_config.sweep_interval_seconds,
+            node_suspect_threshold=bind_ack_config.node_suspect_threshold,
+            taint_suspect_nodes=bind_ack_config.taint_suspect_nodes,
         )
+        sched.bind_ack_tracker.start()
     add_all_event_handlers(sched, informer_factory)
     # materialize every plugin-consumed informer BEFORE factory start so
     # listers are synced by WaitForCacheSync (reference factory.go shape)

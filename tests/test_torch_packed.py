@@ -260,11 +260,3 @@ def test_carry_from_numpy_feeds_the_same_solve():
         pieces, t_alloc, t_valid, t_req, t_nzr, config=tcfg, device="cpu"
     )
     _assert_outputs_equal(got, want)
-
-
-def test_solve_packed_rejects_unported_modes():
-    with pytest.raises(ValueError, match="later slice"):
-        torch_asg.solve_packed(
-            _batch(0), None, None, None, None, mode="sinkhorn",
-            device="cpu",
-        )

@@ -752,26 +752,3 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if root in ("jax", "jaxlib", "kubernetes_tpu"):
                 bad.append((os.path.relpath(path, REPO), mod))
     assert not bad, bad
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"solver_mode": "sinkhorn"},
-        {"solver_mode": "sinkhorn", "mesh": "cpu-mesh"},
-    ],
-    ids=["sinkhorn", "mesh"],
-)
-def test_unported_solver_modes_are_rejected(kwargs):
-    """Sinkhorn mode waits for a later slice, on one device and on a
-    mesh alike."""
-    from kubernetes_tpu_torch.ops.mesh import NodeMesh
-
-    if kwargs.get("mesh") == "cpu-mesh":
-        kwargs = dict(kwargs, mesh=NodeMesh(["cpu"] * 2))
-    server = APIServer()
-    with pytest.raises(ValueError, match="later slice"):
-        new_scheduler(
-            Client(server), InformerFactory(server), batch=True,
-            device="cpu", **kwargs,
-        )

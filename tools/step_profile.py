@@ -10,7 +10,9 @@ csrc/solve_common.cuh: thread 0 of CTA 0 adds the clock64 cycles between
 consecutive marks to one counter per phase (K3's "owner rebuild" is
 added by the chosen node's owner warp instead). Runs each kernel once at
 chip_smoke.py's shapes (K1: the burst's random batch and its homogeneous
-batch, B=4,096, N=5,632; K2: the constrained batch, B=1,024 with 1,000
+batch, B=4,096, N=5,632, and ChurnSinkhorn/50000's batch, B=1,024,
+N=50,048, through the greedy entry and through the scored entry on its
+sinkhorn prior; K2: the constrained batch, B=1,024 with 1,000
 active, N=5,632, with all three families and with each alone; K3: the
 Preemption/5000 wave, 1,032 active pods on 5,000 nodes, and its
 four-PDB case), after one warm launch, and prints
@@ -31,6 +33,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from kubernetes_tpu_torch.ops import assignment as asg  # noqa: E402
 from kubernetes_tpu_torch.ops import constrained_kernel as ck  # noqa: E402
 from kubernetes_tpu_torch.ops import greedy_kernel as gk  # noqa: E402
 from kubernetes_tpu_torch.ops import kernel_build  # noqa: E402
@@ -95,6 +98,13 @@ def cases():
         dev = [torch.from_numpy(a).cuda() for a in h]
         k1.append((name, int(h[8].sum()),
                    lambda dev=dev: gk.greedy_solve_cuda(*dev)))
+    churn = chip_smoke.churned_problem(0, **chip_smoke.CHURN_SHAPE)
+    dev = [torch.from_numpy(a).cuda() for a in churn]
+    prior = asg.sinkhorn_prior(*dev)
+    k1.append(("churn_sinkhorn_50000_greedy", int(churn[8].sum()),
+               lambda dev=dev: gk.greedy_solve_cuda(*dev)))
+    k1.append(("churn_sinkhorn_50000_scored", int(churn[8].sum()),
+               lambda dev=dev: gk.greedy_solve_cuda(*dev, prior=prior)))
     common, fams, noops = chip_smoke.constrained_problem(7)
     dev_common = [
         torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in common

@@ -153,10 +153,49 @@ line is printed only when every phase passed):
    std and max. Then RebalanceSinkhorn/500 (:268-277: 500 nodes, 6,000
    init and 2,000 measured pods of 2 CPU/2Gi, 4 rounds of 500 deletes),
    where the slot cap binds, every batch replayed.
-11. ``kernels``: every ported kernel with its launches on the main path,
+11. ``lifecycle``: the cluster-lifecycle rows of the perf matrix
+   (benchmarks/config/performance-config.yaml), each on a fresh stack
+   built as benchmarks/runner.py builds it, through the entry points on
+   the card: DrainViaPreemption/500 (4,000 residents of 3 CPU / 6Gi, 500
+   measured pods arriving Poisson at 300 pods/s; at half bound 3 waves x
+   4 nodes drained by ``NodeDrainer.drain_via_preemption`` under a PDB
+   of 40, each plan one K3 launch at the plan priority), LifecycleDrainWave
+   /500 (5 waves x 4 whole-node drains), LifecycleReclaimStorm/500
+   (``ClusterLifecycleDriver`` reclaims 10% of the fleet, cold
+   replacements rejoin 1 s later), LifecycleColdScaleUp/500 (400 nodes,
+   pods of 16 CPU, 120 cold nodes join at 60% bound),
+   HeartbeatLapseStorm/1000 (a ``HollowNodeFleet`` acking binds; 25
+   agents go dark at 60% bound, ``NodeLifecycleController`` taints them
+   and evicts, the evictees respawn) and PreemptionCascade/500 (5,000
+   residents fill the cluster, 500 priority-100 pods arrive in MMPP
+   bursts, K3 waves under a PDB of 600, victims respawn). The streaming
+   rows attach the SLO-adaptive controller through
+   ``apply_streaming_config`` and feed the measured pods through
+   ``ArrivalEngine``. Asserts per row: every solve on the "cuda" tier,
+   no fallback; every K1 launch replayed on the CPU from its pieces and
+   handed carry (assignment, requested' and nzr' equal) and every K3
+   launch, plan or wave, through ``preempt_batch_plain`` (chosen, victim
+   words, violation counts and state' equal), the launch counts equal to
+   the recorded calls; every live pod bound (HeartbeatLapseStorm: every
+   pod Running, none on a dark node, every dark node tainted;
+   PreemptionCascade: every priority-100 pod, the respawned victims
+   having no room); no incarnation bound twice; no PDB below zero; no
+   helper thread failed and no batch failed on the card. Per row:
+   DrainViaPreemption's eviction ledger (planned + classic evictions,
+   counted apart through the drainer's client, equal the drainer's, no
+   more than the residents) and at least one K3 plan launch per drained
+   node; ReclaimStorm: one storm, the fleet whole again, membership row
+   patches and one full repack; ColdScaleUp: pods on ``cold-*`` nodes;
+   PreemptionCascade: K3 waves. Prints pods/s, p50/p99 arrival-to-bind,
+   the stage seconds, K1 and K3 launches (plan and wave), the
+   controller's trajectory, the lifecycle counters and one plan launch's
+   time by CUDA events; then the phase's seconds. ``device="cpu"``
+   rehearses it on the CPU.
+12. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
-   ChurnSinkhorn/50000's batch, its launches those of that workload).
+   ChurnSinkhorn/50000's batch, its launches those of that workload; K1
+   and K3 add their launches in ``lifecycle``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -1366,11 +1405,13 @@ def solve_recorders(orig_dispatch, orig_solve, dispatched, seen, calls):
             for name, a in pieces
         ]
         out = orig_solve(pieces, alloc_in, valid_in, req_in, nzr_in, **kw)
-        # a copy of the state handed in, taken in stream order: a later
-        # solve's row patches may update the resident carry in place
+        # copies of the state handed in and of the carry handed out,
+        # taken in stream order: a later solve's row patches may update
+        # the resident carry in place
         handed = tuple(copy(t) for t in (alloc_in, valid_in, req_in, nzr_in))
         calls.append(dict(
             pieces=pieces, state=handed,
+            carry=(copy(out[1]), copy(out[2])),
             out=out, mode=kw.get("mode", "greedy"),
             config=kw.get("config"), compress=kw.get("compress", False),
             mesh=kw.get("mesh"),
@@ -1383,8 +1424,9 @@ def solve_recorders(orig_dispatch, orig_solve, dispatched, seen, calls):
 def replay_solves(calls, dispatched):
     """Replay each recorded solve on the CPU through the plain versions,
     from its pieces and the device state it was handed, in order; check
-    each against the card's answer and return the placements the replay
-    implies: pod name -> node name."""
+    each against the card's answer (the assignment and the carry it
+    handed out, requested' and nzr') and return the placements the
+    replay implies: pod name -> node name."""
     from kubernetes_tpu_torch.ops.assignment import solve_packed
     from kubernetes_tpu_torch.ops.mesh import NodeMesh, ShardedRows
     from kubernetes_tpu_torch.scheduler.batch import _to_host
@@ -1394,7 +1436,10 @@ def replay_solves(calls, dispatched):
     for p in dispatched:
         call = by_out.get(id(p["assignments_dev"]))
         if call is None:
-            raise AssertionError("a dispatch has no recorded solve")
+            raise AssertionError(
+                f"a dispatch on the {p['tier']} tier has no recorded solve "
+                f"({type(p['assignments_dev']).__name__} of {p['b']} pods)"
+            )
         mesh = call.get("mesh")
         # a mesh solve replays on a CPU mesh of as many shards
         cpu_mesh = None if mesh is None else NodeMesh(["cpu"] * mesh.size)
@@ -1404,14 +1449,17 @@ def replay_solves(calls, dispatched):
             if isinstance(t, ShardedRows) else t.cpu()
             for t in call["state"]
         ]
-        asg, _, _, _, _ = solve_packed(
+        asg, req, nzr, _, _ = solve_packed(
             call["pieces"], *handed, config=call["config"],
             mode=call["mode"], compress=call["compress"], device="cpu",
             mesh=cpu_mesh,
         )
         asg = asg.numpy()
         dev_asg = _to_host(p["assignments_dev"])
-        if not np.array_equal(dev_asg, asg):
+        if not np.array_equal(dev_asg, asg) or not all(
+            np.array_equal(_to_host(got), _to_host(want))
+            for got, want in zip(call["carry"], (req, nzr))
+        ):
             raise AssertionError(
                 f"a {call['mode']} solve differs from its CPU replay"
             )
@@ -2864,6 +2912,832 @@ def churn_sinkhorn(gk, asg_mod, workload, device=None):
     return rec
 
 
+# -- phase 11: the cluster-lifecycle plane ------------------------------------
+
+# The lifecycle rows of the perf matrix (benchmarks/config/
+# performance-config.yaml; the defaults of :9-15: 32 CPU / 64Gi / 110-pod
+# nodes in 10 zones, max_batch 1024), built as benchmarks/runner.py builds
+# them. Nothing is cut.
+LIFECYCLE_ROWS = [
+    dict(
+        name="DrainViaPreemption/500", source=":366-381", nodes=500,
+        init=4000, init_pod=dict(cpu="3000m", memory="6Gi", priority=0,
+                                 labels={"app": "drainable"}),
+        measured=500, pod=dict(cpu="3000m", memory="6Gi",
+                               labels={"app": "drainable"}),
+        streaming=dict(trace="poisson", rate=300, seed=31, sloP99="5s"),
+        lifecycle=dict(mode="drain_via_preemption", at_fraction=0.5,
+                       waves=3, nodes_per_wave=4, wave_timeout_s=60,
+                       pdb=dict(match_labels={"app": "drainable"},
+                                max_unavailable=40)),
+    ),
+    dict(
+        name="LifecycleDrainWave/500", source=":558-570", nodes=500,
+        measured=1000, pod=dict(cpu="250m", memory="512Mi",
+                                labels={"app": "drainable"}),
+        streaming=dict(trace="poisson", rate=300, seed=7, sloP99="2s"),
+        lifecycle=dict(mode="drain_wave", at_fraction=0.5, waves=5,
+                       nodes_per_wave=4, wave_timeout_s=30,
+                       pdb=dict(match_labels={"app": "drainable"},
+                                max_unavailable=100)),
+    ),
+    dict(
+        name="LifecycleReclaimStorm/500", source=":571-582", nodes=500,
+        measured=1000, pod=dict(cpu="250m", memory="512Mi"),
+        streaming=dict(trace="poisson", rate=300, seed=11, sloP99="2s"),
+        lifecycle=dict(mode="reclaim_storm", at_fraction=0.5, storms=1,
+                       storm_fraction=0.1, storm_down_seconds=1.0),
+    ),
+    dict(
+        name="LifecycleColdScaleUp/500", source=":583-595", nodes=400,
+        measured=1000, pod=dict(cpu="16", memory="512Mi"),
+        streaming=dict(trace="poisson", rate=200, seed=13, sloP99="5s"),
+        lifecycle=dict(mode="scale_up", at_fraction=0.6, add_nodes=120),
+    ),
+    dict(
+        name="HeartbeatLapseStorm/1000", source=":762-775", nodes=500,
+        measured=1000, pod=dict(cpu="250m", memory="512Mi"),
+        fleet=dict(ack_latency_seconds=0.02, heartbeat_interval_seconds=0.5,
+                   lease_duration_seconds=4.0,
+                   dark=dict(count=25, at_fraction=0.6),
+                   lifecycle=dict(grace_period=3.0, monitor_interval=0.5),
+                   bind_ack=dict(ack_timeout_seconds=2.0,
+                                 sweep_interval_seconds=0.25)),
+    ),
+    dict(
+        name="PreemptionCascade/500", source=":348-360", nodes=500,
+        init=5000, init_pod=dict(cpu="3000m", memory="6Gi", priority=0,
+                                 labels={"app": "fill"}),
+        measured=500, pod=dict(cpu="3000m", memory="6Gi", priority=100),
+        init_preempt=32,
+        streaming=dict(trace="bursty", rate=250, seed=29, sloP99="10s"),
+        preemption=dict(pdb=dict(match_labels={"app": "fill"},
+                                 max_unavailable=600),
+                        respawn_prefix="init-", high_priority_threshold=100),
+    ),
+]
+LIFECYCLE_WAIT_S = 180  # each wait of a row: measured binds, settle
+
+
+def lifecycle_pod(make_pod, name, spec):
+    """A pod as benchmarks/runner.py:139 _build_pod builds these rows'."""
+    w = make_pod(name).container(cpu=spec["cpu"], memory=spec["memory"])
+    if spec.get("labels"):
+        w.labels(**spec["labels"])
+    if spec.get("priority") is not None:
+        w.priority(int(spec["priority"]))
+    return w.obj()
+
+
+def double_binds(server, rebinds_allowed):
+    """Pod incarnations (uids) bound twice, replayed from the whole watch
+    history: moved from one node straight to another, or bound again
+    after more unbinds than ``rebinds_allowed`` (the bind-ack tracker
+    unbinds an unacked pod once per incarnation, and it binds again)."""
+    w = server.watch("Pod", since_rv=0)
+    node, binds, unbinds, bad = {}, {}, {}, set()
+    for ev in w.pending():
+        uid = ev.object.metadata.uid
+        if ev.type == "DELETED":
+            node.pop(uid, None)
+            continue
+        prev, cur = node.get(uid, ""), ev.object.spec.node_name or ""
+        if prev and cur and prev != cur:
+            bad.add(uid)
+        if not prev and cur:
+            binds[uid] = binds.get(uid, 0) + 1
+        if prev and not cur:
+            unbinds[uid] = unbinds.get(uid, 0) + 1
+        node[uid] = cur
+    w.stop()
+    for uid, n in binds.items():
+        u = unbinds.get(uid, 0)
+        if u > rebinds_allowed or n > u + 1:
+            bad.add(uid)
+    return bad
+
+
+def pdb_floor(server):
+    """The least disruptionsAllowed any PDB status write ever left."""
+    w = server.watch("PodDisruptionBudget", since_rv=0)
+    floor = 0
+    for ev in w.pending():
+        if ev.type != "DELETED":
+            floor = min(floor, ev.object.status.disruptions_allowed)
+    w.stop()
+    return floor
+
+
+def residents_faced(server, windows):
+    """Per drain window (node, rv at its start, rv at its end): the pod
+    incarnations (uids) on the node at the start, plus those bound to it
+    during the drain (a dispatch in flight can land a pod before the
+    scheduler sees the cordon) -- every pod a whole-node drain of that
+    window would evict. Replayed from the whole watch history."""
+    w = server.watch("Pod", since_rv=0)
+    evs = w.pending()
+    w.stop()
+    total = 0
+    for v, rv0, rv1 in windows:
+        node, faced, started = {}, set(), False
+        for ev in evs:
+            if ev.resource_version > rv0 and not started:
+                faced |= {u for u, n in node.items() if n == v}
+                started = True
+            if ev.resource_version > rv1:
+                break
+            uid = ev.object.metadata.uid
+            if ev.type == "DELETED":
+                node.pop(uid, None)
+                continue
+            node[uid] = ev.object.spec.node_name
+            if started and node[uid] == v:
+                faced.add(uid)
+        if not started:
+            faced |= {u for u, n in node.items() if n == v}
+        total += len(faced)
+    return total
+
+
+class EvictionLedger:
+    """The drainer's client, counting each of the drainer's evictions by
+    whether the victim search planned a destination for the pod (an
+    account of the drain kept apart from the drainer's own counters)."""
+
+    def __init__(self, client):
+        self._client = client
+        self.planned_uids = set()
+        self.planned = 0
+        self.classic = 0
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+    def delete_pod(self, namespace, name):
+        uid = self._client.get_pod(namespace, name).metadata.uid
+        out = self._client.delete_pod(namespace, name)
+        if uid in self.planned_uids:
+            self.planned += 1
+        else:
+            self.classic += 1
+        return out
+
+
+def lifecycle_row(row, gk, pk, device=None):
+    """One lifecycle row through the port's entry points: its stack, the
+    init fill, then the measured pods arriving on the row's trace while
+    its scenario (drains, a storm, cold nodes, dark agents, preemption
+    waves) runs on its own thread. Every K1 launch is replayed on the CPU
+    from its recorded pieces and handed state, every K3 launch (plans
+    and waves) through ``preempt_batch_plain``. ``device="cpu"``
+    rehearses the row on the CPU."""
+    from kubernetes_tpu_torch.api.types import (
+        POD_RUNNING, LabelSelector, PodDisruptionBudget,
+    )
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.config.types import BindAckConfiguration
+    from kubernetes_tpu_torch.controllers import (
+        DisruptionController, NodeDrainer, NodeLifecycleController,
+    )
+    from kubernetes_tpu_torch.controllers.nodelifecycle import (
+        TAINT_UNREACHABLE,
+    )
+    from kubernetes_tpu_torch.kubelet import FleetConfig, HollowNodeFleet
+    from kubernetes_tpu_torch.ops import preemption as pre_mod
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+    )
+    from kubernetes_tpu_torch.robustness.lifecycle import (
+        ClusterLifecycleDriver, PodRespawner,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.preemption import _PLAN_PRIO
+    from kubernetes_tpu_torch.scheduler.scheduler import (
+        apply_streaming_config, new_scheduler,
+    )
+    from kubernetes_tpu_torch.streaming.arrivals import (
+        ArrivalEngine, trace_from_config,
+    )
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    n_nodes = row["nodes"]
+    lc = row.get("lifecycle") or {}
+    fleet_cfg = row.get("fleet")
+    pre_cfg = row.get("preemption")
+    t_setup = time.perf_counter()
+    errors = []  # (thread, exception) of every helper thread
+    stoppers = []
+    stop_evt = threading.Event()
+    counters = {}
+
+    def spawn(thread_name, fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append((thread_name, e))
+                raise
+
+        t = threading.Thread(target=run, name=thread_name, daemon=True)
+        t.start()
+        return t
+
+    def pdb(spec, pdb_name):
+        out = PodDisruptionBudget(
+            selector=LabelSelector(match_labels=dict(spec["match_labels"])),
+            max_unavailable=spec.get("max_unavailable"),
+        )
+        out.metadata.name = pdb_name
+        out.metadata.namespace = "default"
+        return out
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(
+        client, informers, batch=True, max_batch=MAX_CONSTRAINED_BATCH,
+        device=device,
+        bind_ack_config=(
+            BindAckConfiguration(enabled=True, **fleet_cfg["bind_ack"])
+            if fleet_cfg else None
+        ),
+    )
+    if (sched.device.type == "cuda") != on_card or (
+        sched.preemptor.device.type != sched.device.type
+    ):
+        raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    streaming = None
+    if row.get("streaming"):
+        # the workload's streaming block through the config entry point:
+        # the controller replaces the static batch window
+        cfg = load_config_from_dict(
+            {"streaming": {"enabled": True, **row["streaming"]}}
+        )
+        apply_streaming_config(
+            sched, cfg, informers, batch=True,
+            max_batch=MAX_CONSTRAINED_BATCH,
+        )
+        streaming = cfg.streaming
+        if sched.autobatch is None:
+            raise AssertionError(f"{name}: no controller attached")
+    preemptor = sched.preemptor
+    respawner = None
+    if pre_cfg:
+        dc = DisruptionController(client, informers)
+        dc.start()
+        stoppers.append(dc)
+        preemptor.disruption = dc
+        client.create_pdb(pdb(pre_cfg["pdb"], "preemption-budget"))
+        prefix = pre_cfg["respawn_prefix"]
+        respawner = PodRespawner(
+            client, should_respawn=lambda p: p.metadata.name.startswith(prefix)
+        )
+        respawner.start()
+        stoppers.append(respawner)
+    node_names = [f"node-{i}" for i in range(n_nodes)]
+    for i, nm in enumerate(node_names):
+        client.create_node(
+            make_node(nm).capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, nm).obj()
+        )
+
+    # the scenario, as benchmarks/runner.py:262-454 builds it
+    mode = lc.get("mode")
+    drainer = ledger = driver = None
+    plan_nodes = {}  # drained node -> K3 plan launches for it
+    windows = []  # (drained node, rv at the drain's start, rv at its end)
+    if mode in ("drain_via_preemption", "drain_wave"):
+        dc = DisruptionController(client, informers)
+        dc.start()
+        stoppers.append(dc)
+        client.create_pdb(pdb(lc["pdb"], "drain-budget"))
+        respawner = PodRespawner(client)
+        respawner.start()
+        stoppers.append(respawner)
+        if mode == "drain_via_preemption":
+            preemptor.disruption = dc
+            ledger = EvictionLedger(client)
+            drainer = NodeDrainer(ledger, disruption=dc,
+                                  should_abort=stop_evt.is_set,
+                                  preemptor=preemptor)
+        else:
+            drainer = NodeDrainer(client, disruption=dc,
+                                  should_abort=stop_evt.is_set)
+        counters["baseline_pods"] = 0
+    elif mode == "reclaim_storm":
+        # a private injector (never installed): the storm count is fixed
+        # and no solver fault rides along
+        driver = ClusterLifecycleDriver(
+            client,
+            injector=FaultInjector(FaultProfile(
+                name="bench-reclaim", seed=0,
+                points={FaultPoint.RECLAIM_STORM: PointConfig(
+                    rate=1.0, max_fires=int(lc["storms"]))},
+            )),
+            tick_interval=0.2, flap_down_seconds=0.5,
+            storm_fraction=float(lc["storm_fraction"]),
+            storm_down_seconds=float(lc["storm_down_seconds"]),
+        )
+        stoppers.append(driver)
+    fleet = lifecycle_ctrl = None
+    dark = []
+    if fleet_cfg:
+        fleet = HollowNodeFleet(client, node_names, FleetConfig(**{
+            k: fleet_cfg[k] for k in (
+                "ack_latency_seconds", "heartbeat_interval_seconds",
+                "lease_duration_seconds",
+            )
+        }))
+        fleet.start()
+        stoppers.append(fleet)
+        dc = DisruptionController(client, informers)
+        dc.start()
+        stoppers.append(dc)
+        lifecycle_ctrl = NodeLifecycleController(
+            client, informers,
+            grace_period=fleet_cfg["lifecycle"]["grace_period"],
+            monitor_interval=fleet_cfg["lifecycle"]["monitor_interval"],
+            disruption=dc,
+        )
+        lifecycle_ctrl.start()
+        stoppers.append(lifecycle_ctrl)
+        respawner = PodRespawner(
+            client,
+            should_respawn=lambda p: p.metadata.name.startswith("measure-"),
+        )
+        respawner.start()
+        stoppers.append(respawner)
+
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+
+    # record every K1 solve (pieces, handed state, answer) and every K3
+    # launch (operands, answer, the node a plan drains)
+    dispatched, seen, calls, k3_calls = [], set(), [], []
+    orig_dispatch, orig_solve = sched._dispatch_solve, batch_mod.solve_packed
+    orig_k3 = pk.preempt_solve
+    orig_plan = preemptor.plan_replacements
+    # the node a plan drains: plans come from the scenario thread alone,
+    # and the launch itself may run on the ladder's watchdog thread
+    draining = {"node": None}
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+
+    def recording_k3(*args):
+        out = orig_k3(*args)
+        k3_calls.append((args, out, draining["node"]))
+        return out
+
+    def recording_plan(pods, exclude_nodes=()):
+        draining["node"] = exclude_nodes[0] if exclude_nodes else None
+        try:
+            dests = orig_plan(pods, exclude_nodes=exclude_nodes)
+        finally:
+            draining["node"] = None
+        if ledger is not None:
+            ledger.planned_uids.update(
+                p.metadata.uid for p, d in zip(pods, dests) if d
+            )
+        return dests
+
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    pk.preempt_solve = recording_k3
+    preemptor.plan_replacements = recording_plan
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    wave_tiers0 = dict(preemptor.ladder.solves_by_tier)
+    counters0 = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+        host_preemptions=preemptor.host_preemptions,
+    )
+    stages0 = dict(sched.stage_seconds)
+    patches0 = sched.membership_row_patches
+    uploads0 = sched.state_uploads
+    gk.launches = 0  # the counts of THIS row's run of the path
+    pk.launches = 0
+    sched_thread = None
+    engine = None
+    scenario_thread = None
+    watch = None
+
+    def check_alive(running=True):
+        if errors:
+            thread_name, err = errors[0]
+            raise AssertionError(f"{name}: {thread_name} failed: {err!r}") from err
+        if sched.card_fault is not None:
+            raise AssertionError(
+                f"{name}: a batch failed on the card: {sched.card_fault!r}"
+            ) from sched.card_fault
+        if running and sched_thread is not None and (
+            not sched_thread.is_alive()
+        ):
+            raise AssertionError(f"{name}: the scheduler thread died")
+
+    def wait_for(cond, what, timeout=LIFECYCLE_WAIT_S):
+        deadline = time.time() + timeout
+        while True:
+            check_alive()
+            if cond():
+                return
+            if time.time() > deadline:
+                raise AssertionError(f"{name}: timed out waiting for {what}")
+            time.sleep(0.05)
+
+    def live_pods():
+        return [p for p in client.list_pods()[0]
+                if p.metadata.deletion_timestamp is None]
+
+    try:
+        init_n = row.get("init", 0)
+        fill_s = 0.0
+        if init_n:
+            init = [lifecycle_pod(make_pod, f"init-{i}", row["init_pod"])
+                    for i in range(init_n)]
+            watch = BindWatcher(server, [p.metadata.name for p in init])
+            sched_thread = sched.start()
+            t0 = time.perf_counter()
+            for lo in range(0, init_n, 1000):
+                client.create_pods_bulk(init[lo:lo + 1000])
+            wait_for(lambda: watch._outstanding <= 0, "the init pods")
+            watch.stop()
+            sched.wait_for_inflight_binds(timeout=60)
+            fill_s = time.perf_counter() - t0
+        else:
+            sched_thread = sched.start()
+        n_warm = row.get("init_preempt", 0)
+        if n_warm:
+            warm = [lifecycle_pod(make_pod, f"warmpre-{i}", row["pod"])
+                    for i in range(n_warm)]
+            watch = BindWatcher(server, [p.metadata.name for p in warm])
+            client.create_pods_bulk(warm)
+            wait_for(lambda: watch._outstanding <= 0, "the warm preemptors")
+            watch.stop()
+            sched.wait_for_inflight_binds(timeout=60)
+        setup_s = time.perf_counter() - t_setup
+
+        measured_n = row["measured"]
+        pods = [lifecycle_pod(make_pod, f"measure-{i}", row["pod"])
+                for i in range(measured_n)]
+        names = [p.metadata.name for p in pods]
+        watch = BindWatcher(server, names)
+
+        def wait_fraction(frac):
+            need = int(frac * measured_n)
+            wait_for(lambda: measured_n - watch._outstanding >= need,
+                     f"{frac:.0%} of the measured pods to bind")
+
+        def drains():
+            wait_fraction(lc["at_fraction"])
+            idx = 0
+            for _ in range(lc["waves"]):
+                victims = [f"node-{(idx + j) % n_nodes}"
+                           for j in range(lc["nodes_per_wave"])]
+                idx += lc["nodes_per_wave"]
+                for v in victims:
+                    if stop_evt.is_set():
+                        return
+                    rv0 = server.current_rv()
+                    counters["baseline_pods"] += sum(
+                        1 for p in client.list_pods()[0]
+                        if p.spec.node_name == v
+                    )
+                    if mode == "drain_via_preemption":
+                        plan_nodes[v] = 0
+                        drainer.drain_via_preemption(
+                            v, timeout=lc["wave_timeout_s"])
+                    else:
+                        drainer.drain(v, timeout=lc["wave_timeout_s"])
+                    windows.append((v, rv0, server.current_rv()))
+                for v in victims:  # the wave is back in service
+                    drainer.uncordon(v)
+
+        def storm():
+            wait_fraction(lc["at_fraction"])
+            driver.start()
+            # hold until the storm landed and its nodes came back
+            deadline = time.time() + 30
+            while time.time() < deadline and not stop_evt.is_set():
+                if driver.storms >= 1 and driver.down_count() == 0:
+                    return
+                time.sleep(0.1)
+            raise AssertionError("the storm did not land and heal in 30 s")
+
+        def scale_up():
+            wait_fraction(lc["at_fraction"])
+            for i in range(lc["add_nodes"]):
+                client.create_node(
+                    make_node(f"cold-{i}").capacity(
+                        cpu="32", memory="64Gi", pods=110)
+                    .label(ZONE_KEY, f"zone-{i % 10}")
+                    .label(HOST_KEY, f"cold-{i}").obj()
+                )
+            counters["nodes_added"] = lc["add_nodes"]
+
+        def go_dark():
+            wait_fraction(fleet_cfg["dark"]["at_fraction"])
+            dark.extend(node_names[:fleet_cfg["dark"]["count"]])
+            fleet.go_dark(list(dark))
+
+        scenario = {
+            "drain_via_preemption": drains, "drain_wave": drains,
+            "reclaim_storm": storm, "scale_up": scale_up,
+        }.get(mode, go_dark if fleet_cfg else None)
+        create_times = {}
+        start = time.perf_counter()
+        if scenario is not None:
+            scenario_thread = spawn(f"{name} scenario", scenario)
+        if streaming is not None:
+            # the runner's sizing (:1221-1262): grow the trace until it
+            # covers every measured pod, then trim
+            dur = measured_n / streaming.rate_pods_per_sec
+            offsets = trace_from_config(streaming, duration=dur)
+            while offsets.size < measured_n:
+                dur *= 1.3
+                offsets = trace_from_config(streaming, duration=dur)
+            engine = ArrivalEngine(
+                client, offsets[:measured_n], lambda i: pods[i],
+                depth_fn=sched.queue.active_count,
+                max_queue_depth=streaming.max_queue_depth,
+            )
+            engine.start()
+        else:
+            for lo in range(0, measured_n, 100):
+                now = time.perf_counter()
+                for p in pods[lo:lo + 100]:
+                    create_times[p.metadata.name] = now
+                client.create_pods_bulk(pods[lo:lo + 100])
+        wait_for(lambda: watch._outstanding <= 0, "the measured pods")
+        last_bind = max(watch.bind_times[nm] for nm in names)
+        elapsed = last_bind - start
+        if engine is not None:
+            engine.stop()
+            if engine.created != measured_n:
+                raise AssertionError(
+                    f"{name}: the arrival engine created {engine.created} "
+                    f"of {measured_n} pods"
+                )
+            create_times.update(engine.created_ts)
+        if scenario_thread is not None:
+            wait_for(lambda: not scenario_thread.is_alive(), "the scenario")
+        # settle: every live incarnation bound (the respawned clones the
+        # name-keyed watch cannot see), the fleet back to Running
+        high = (pre_cfg or {}).get("high_priority_threshold")
+
+        def settled():
+            live = live_pods()
+            unbound = [p for p in live if not p.spec.node_name]
+            if high is not None:
+                # the cluster is full by construction: respawned victims
+                # (priority 0) have no room; the high band must all bind
+                return not [p for p in unbound
+                            if p.spec.priority >= high
+                            or not p.metadata.name.startswith("init-")]
+            if unbound:
+                return False
+            if fleet_cfg:
+                # the storm fired, the monitor tainted every dark node
+                # unreachable, and every live pod runs off them
+                dark_set = set(dark)
+                tainted = {
+                    n.metadata.name for n in client.list_nodes()[0]
+                    if any(t.key == TAINT_UNREACHABLE for t in n.spec.taints)
+                }
+                return bool(dark_set) and dark_set <= tainted and all(
+                    p.status.phase == POD_RUNNING
+                    and p.spec.node_name not in dark_set for p in live
+                )
+            return True
+
+        wait_for(settled, "every live pod to bind")
+        sched.wait_for_inflight_binds(timeout=60)
+        check_alive()
+        nodes_now = [n.metadata.name for n in client.list_nodes()[0]]
+        live = live_pods()
+        # the dispatcher stops first: it lands what is in flight and stops
+        # its committer, so no launch follows the counts read below
+        sched._stop.set()
+        sched_thread.join(timeout=60)
+        if sched_thread.is_alive():
+            raise AssertionError(f"{name}: the scheduler did not stop")
+        check_alive(running=False)
+        k1_launches, k3_launches = gk.launches, pk.launches
+    finally:
+        stop_evt.set()
+        if engine is not None:
+            engine.stop()
+        if watch is not None:
+            watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+        pk.preempt_solve = orig_k3
+        preemptor.plan_replacements = orig_plan
+        if scenario_thread is not None:
+            scenario_thread.join(timeout=30)
+        for comp in reversed(stoppers):
+            comp.stop()
+        sched.stop()
+
+    doubles = double_binds(server, 1 if fleet_cfg else 0)
+    floor = pdb_floor(server)
+    stages = {k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()}
+    tiers = {k: v - tiers0.get(k, 0)
+             for k, v in sched.ladder.solves_by_tier.items()}
+    wave_tiers = {k: v - wave_tiers0.get(k, 0)
+                  for k, v in preemptor.ladder.solves_by_tier.items()}
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+        host_preemptions=preemptor.host_preemptions,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    controller = sched.autobatch
+    full_repacks = sched.tensor_cache.full_repacks
+    informers.stop()
+
+    if set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{name}: batches off the {tier} tier: {tiers}")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{name}: a dispatch solved off the {tier} tier")
+    if set(k for k, v in wave_tiers.items() if v) - {tier}:
+        raise AssertionError(f"{name}: K3 off the {tier} tier: {wave_tiers}")
+    if any(moved.values()):
+        raise AssertionError(f"{name}: a fallback counter moved: {moved}")
+    if doubles:
+        raise AssertionError(
+            f"{name}: {len(doubles)} incarnations bound more than once"
+        )
+    if floor < 0:
+        raise AssertionError(f"{name}: a PDB went to {floor}")
+    # every K1 launch replayed on the CPU, every K3 launch through the
+    # plain version
+    greedy = [c for c in calls if c["mode"] == "greedy"]
+    if on_card and k1_launches != len(greedy):
+        raise AssertionError(
+            f"{name}: {k1_launches} K1 launches, {len(greedy)} recorded"
+        )
+    if on_card and k3_launches != len(k3_calls):
+        raise AssertionError(
+            f"{name}: {k3_launches} K3 launches, {len(k3_calls)} recorded"
+        )
+    t_replay = time.perf_counter()
+    replay_solves(calls, dispatched)
+    k3_plan = k3_wave = 0
+    plan_shape = None
+    for args, out, node in k3_calls:
+        cpu_args = [a.cpu() for a in args]
+        want = pre_mod.preempt_batch_plain(*cpu_args)
+        if not all(torch.equal(o.cpu(), w) for o, w in zip(out, want)):
+            raise AssertionError(f"{name}: a K3 launch differs from its replay")
+        if bool((cpu_args[12] == _PLAN_PRIO).all()):
+            k3_plan += 1
+            if node in plan_nodes:
+                plan_nodes[node] += 1
+            shape = (int(cpu_args[0].shape[0]), int(cpu_args[2].shape[1]),
+                     int(cpu_args[11].shape[0]))
+            if plan_shape is None or shape[2] > plan_shape[2]:
+                plan_shape, plan_args = shape, args
+        else:
+            k3_wave += 1
+    replay_s = time.perf_counter() - t_replay
+
+    if drainer is not None:
+        counters.update(
+            residents_faced=residents_faced(server, windows),
+            evictions=drainer.evictions,
+            evictions_blocked=drainer.evictions_blocked,
+            drains_completed=drainer.drains,
+            preempt_planned=drainer.preempt_planned,
+            preempt_left_running=drainer.preempt_left_running,
+        )
+    if ledger is not None:
+        counters.update(planned_evictions=ledger.planned,
+                        classic_evictions=ledger.classic)
+        if (ledger.planned != drainer.preempt_planned
+                or ledger.planned + ledger.classic != drainer.evictions):
+            raise AssertionError(
+                f"{name}: eviction ledger: {ledger.planned} planned + "
+                f"{ledger.classic} classic != {drainer.evictions} evictions "
+                f"({drainer.preempt_planned} planned by the drainer)"
+            )
+        if drainer.evictions > counters["residents_faced"]:
+            raise AssertionError(
+                f"{name}: more evictions than residents: {counters}"
+            )
+        short = {v: k for v, k in plan_nodes.items() if k < 1}
+        if on_card and short:
+            raise AssertionError(f"{name}: no K3 plan launch for {short}")
+    if lifecycle_ctrl is not None:
+        counters.update(evictions=lifecycle_ctrl.evictions,
+                        evictions_blocked=lifecycle_ctrl.evictions_blocked,
+                        dark_nodes=len(dark),
+                        ack_rebinds=sched.bind_ack_tracker.rebinds)
+    if respawner is not None:
+        counters["respawned"] = respawner.respawned
+    if driver is not None:
+        counters.update(
+            storms=driver.storms, flaps=driver.flaps,
+            nodes_reclaimed=driver.nodes_reclaimed,
+            pods_killed=driver.pods_killed, respawned=driver.pods_respawned,
+        )
+    counters.update(
+        membership_row_patches=sched.membership_row_patches - patches0,
+        full_repacks=full_repacks,
+        state_uploads=sched.state_uploads - uploads0,
+    )
+    if mode == "reclaim_storm" and (
+        driver.storms != 1 or len(nodes_now) != n_nodes
+        or counters["membership_row_patches"] <= 0 or full_repacks != 1
+    ):
+        raise AssertionError(f"{name}: the storm's ledger: {counters}")
+    on_cold = sum(1 for p in live if p.spec.node_name.startswith("cold-"))
+    if mode == "scale_up" and on_cold <= 0:
+        raise AssertionError(f"{name}: no pod on a cold node")
+    high_unbound = None
+    if pre_cfg:
+        high_unbound = sum(
+            1 for p in live
+            if p.spec.priority >= pre_cfg["high_priority_threshold"]
+            and not p.spec.node_name
+        )
+        if high_unbound or k3_wave <= 0:
+            raise AssertionError(
+                f"{name}: {high_unbound} high-priority pods unbound, "
+                f"{k3_wave} waves"
+            )
+    if on_card and k1_launches <= 0:
+        raise AssertionError(f"{name}: K1 never launched")
+
+    plan_ms = None
+    if on_card and plan_shape is not None:
+        # one plan launch at this row's largest plan, by CUDA events
+        plan_ms, _ = cuda_ms(lambda: orig_k3(*plan_args), 20)
+    lat = sorted(watch.bind_times[nm] - create_times[nm] for nm in names)
+    rec = dict(
+        row=name, source=f"benchmarks/config/performance-config.yaml"
+        f"{row['source']}", nodes=n_nodes, init_pods=row.get("init", 0),
+        pods=measured_n, seconds=elapsed, pods_per_sec=measured_n / elapsed,
+        p50_arrival_to_bind_s=lat[len(lat) // 2],
+        p99_arrival_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        live_pods=len(live), bound=sum(1 for p in live if p.spec.node_name),
+        on_cold_nodes=on_cold, high_priority_unbound=high_unbound,
+        nodes_at_end=len(nodes_now), stage_seconds=stages,
+        greedy_kernel_launches=k1_launches, preempt_kernel_launches=k3_launches,
+        k3_plan_launches=k3_plan, k3_wave_launches=k3_wave,
+        k3_plan_launches_by_node=plan_nodes or None,
+        k3_plan_ms=plan_ms, k3_plan_shape=plan_shape,
+        batches=len(dispatched), solves_by_tier=tiers,
+        wave_solves_by_tier=wave_tiers, counters_moved=moved,
+        lifecycle=counters, replay_equal=True, replay_seconds=replay_s,
+        fill_seconds=fill_s, setup_seconds=setup_s,
+    )
+    if controller is not None:
+        rec["controller"] = dict(
+            steps=controller.steps, window_changes=controller.window_changes,
+            cap_changes=controller.cap_changes, grows=controller.grows,
+            shrinks=controller.shrinks, latches=controller.latches,
+            window=controller.window, batch_cap=controller.batch_cap,
+        )
+    if engine is not None:
+        rec["arrivals"] = dict(
+            trace=streaming.trace, rate=streaming.rate_pods_per_sec,
+            seed=streaming.seed, created=engine.created,
+            backpressure_stalls=engine.backpressure_stalls,
+        )
+    emit("lifecycle", **rec)
+    return rec
+
+
+def lifecycle(gk, pk, device=None, rows=LIFECYCLE_ROWS):
+    """The ``lifecycle`` phase: every row on a fresh stack, in order."""
+    t0 = time.perf_counter()
+    recs = [lifecycle_row(row, gk, pk, device) for row in rows]
+    totals = dict(
+        greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs),
+        preempt_kernel_launches=sum(
+            r["preempt_kernel_launches"] for r in recs),
+        k3_plan_launches=sum(r["k3_plan_launches"] for r in recs),
+        k3_wave_launches=sum(r["k3_wave_launches"] for r in recs),
+    )
+    emit("lifecycle_phase", rows=len(recs),
+         seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -2917,12 +3791,14 @@ def main():
     mesh_mixed(mesh, gk, ck, pk, sk)
     churn = churn_sinkhorn(gk, asg_mod, "ChurnSinkhorn/50000")
     churn_sinkhorn(gk, asg_mod, "RebalanceSinkhorn/500")
+    life = lifecycle(gk, pk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
         source="kubernetes_tpu_torch/csrc/greedy_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_solver.py:123",
-        launches=rec["greedy_kernel_launches"],
+        launches=rec["greedy_kernel_launches"]
+        + life["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],
@@ -2958,7 +3834,8 @@ def main():
         route="cuda",
         source="kubernetes_tpu_torch/csrc/preempt_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_preempt.py:69",
-        launches=pre["preempt_kernel_launches"],
+        launches=pre["preempt_kernel_launches"]
+        + life["preempt_kernel_launches"],
         max_abs_err=p_max_err,
         ms=p_timing["ms"],
         plain_ms=p_timing["plain_ms"],

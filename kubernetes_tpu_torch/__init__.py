@@ -18,10 +18,11 @@ search (K3) and the mesh tier's shard candidate (K4):
 Entry points solve on the card unless the caller names the CPU
 (``device="cpu"``, where each kernel's plain PyTorch version runs). The
 layout mirrors ``kubernetes_tpu`` module for module, the hollow-node
-plane (kubelet/, scheduler/bindack.py) included; not here yet: drain
-planning and the node-lifecycle controller, streaming, partitions,
-tenancy and the quota controller, and the lifecycle chaos plane
-(robustness/lifecycle.py).
+plane (kubelet/, scheduler/bindack.py), the lifecycle plane
+(controllers/nodelifecycle.py with drain planning through K3,
+robustness/lifecycle.py) and streaming arrivals with the SLO-adaptive
+batcher (streaming/) included; not here yet: partitions, tenancy and
+the quota controller.
 """
 
 __version__ = "0.1.0"

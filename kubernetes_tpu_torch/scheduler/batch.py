@@ -555,6 +555,16 @@ class BatchScheduler(Scheduler):
         self.solver_config = solver_config
         self.tensor_cache = tensor_cache or NodeTensorCache()
         self.batch_window = batch_window
+        # SLO-adaptive batching (streaming/autobatch.py): when a
+        # controller is attached it rewrites batch_window and
+        # dispatch_batch_cap between batches -- the cap bounds how many
+        # pods one pop_batch drains. None = static knobs (no overhead).
+        self.autobatch = None
+        self.dispatch_batch_cap: Optional[int] = None
+        # seconds of one steady solve at each controller rung's batch
+        # size, timed by warmup() when the controller sizes its ladder
+        # from them (auto_rungs); feeds AutoBatchController.calibrate
+        self.rung_solve_seconds: dict = {}
         self.solver_mode = solver_mode
         self.batches_solved = 0
         self.pods_solved_on_device = 0
@@ -594,6 +604,11 @@ class BatchScheduler(Scheduler):
         self._deferred_since = 0.0
         self._prewarm_next_commit = False
         self._committer_stop = False
+        # on the card a failed batch completion (a kernel fault in the
+        # deferred preemption wave, a failed download) is not requeued
+        # and retried behind the kernel's back: the committer keeps the
+        # error here and stops the scheduler (_halt_on_card_fault)
+        self.card_fault: Optional[BaseException] = None
         # -- admission classifier state (scheduler/admission.py) ---------
         # volume-topology generation: bumped by every PV/PVC/StorageClass/
         # CSINode event (eventhandlers), compared against each PVC-bearing
@@ -710,9 +725,25 @@ class BatchScheduler(Scheduler):
         and committing the previous result, so the serving link's
         round-trip latency is overlapped with host commit work instead of
         serializing with it."""
+        ab = self.autobatch
+        if ab is not None:
+            # one controller decision per interval, taken between
+            # batches on the dispatcher thread (deterministic ordering
+            # with the drain; the callable window below lets a shrink
+            # land mid-wait too)
+            ab.maybe_step(self)
+        cap = self.dispatch_batch_cap
+        size = (
+            self.max_batch
+            if not cap
+            else max(1, min(self.max_batch, cap))
+        )
         t_pop = time.perf_counter()
         batch_infos = self.queue.pop_batch(
-            self.max_batch, timeout=timeout, window=self.batch_window,
+            size,
+            timeout=timeout,
+            window=(self._live_window if ab is not None
+                    else self.batch_window),
         )
         dt_pop = time.perf_counter() - t_pop
         # split drain WORK from arrival wait: blocking on an empty queue
@@ -828,7 +859,10 @@ class BatchScheduler(Scheduler):
             self._complete_solve(pending)
         except SchedulerCrashed:
             self._simulate_crash()  # no recovery: the process "died"
-        except Exception:
+        except Exception as e:
+            if self.device.type == "cuda":
+                self._halt_on_card_fault(e)
+                raise
             # a failed download/commit must not crash the dispatch loop:
             # requeue the batch's pods (they retry on whatever tier the
             # breakers now route to) and drop the stale carry
@@ -1211,6 +1245,30 @@ class BatchScheduler(Scheduler):
             out.append(adm)
         return out
 
+    def _live_window(self) -> float:
+        """Window source handed to pop_batch when the adaptive
+        controller is attached. The queue calls it at every window
+        wakeup, so the controller is re-polled MID-WINDOW (still
+        interval-gated, and re-entrant on the queue's RLock since this
+        runs on the dispatcher thread): a shrink decided while a drain
+        is waiting lands on that drain immediately, while the queue
+        clamps the deadline so a grow never extends it."""
+        ab = self.autobatch
+        if ab is not None:
+            ab.maybe_step(self)
+        return self.batch_window
+
+    def attach_autobatch(self, controller) -> None:
+        """Wire an AutoBatchController (streaming/autobatch.py) into the
+        dispatch loop and apply its current outputs now. A batch pads
+        only to the next POD_BUCKET and every kernel takes any batch
+        size, so no rung needs a build of its own; with ``auto_rungs``
+        warmup() times one solve at each rung's size and the
+        controller's ``calibrate`` prunes rungs that don't pay."""
+        self.autobatch = controller
+        self.batch_window = controller.window
+        self.dispatch_batch_cap = controller.batch_cap
+
     def _stage_add(self, name: str, seconds: float) -> None:
         # lock-free on the hot path: each thread owns its accumulator
         # dict; the lock is only taken once per thread to register it
@@ -1297,13 +1355,28 @@ class BatchScheduler(Scheduler):
                 self._complete_solve(p)
             except SchedulerCrashed:
                 self._simulate_crash()  # no recovery: the process "died"
-            except Exception:
+            except Exception as e:
+                if self.device.type == "cuda":
+                    self._halt_on_card_fault(e)
+                    raise
                 logger.exception("batch commit crashed")
                 self._recover_failed_batch(p)
             finally:
                 with self._pending_cv:
                     self._pending_q.popleft()
+                    if self.card_fault is not None:
+                        # the batches behind it are never completed:
+                        # release _drain_pending's waiters
+                        self._pending_q.clear()
                     self._pending_cv.notify_all()
+
+    def _halt_on_card_fault(self, err: BaseException) -> None:
+        """A batch completion failed on the card: keep the error for the
+        scheduler's owner and stop the scheduler, instead of requeueing
+        the batch to meet the same fault again."""
+        logger.error("batch completion failed on the card: %r", err)
+        self.card_fault = err
+        self._stop.set()
 
     def _recover_failed_batch(self, p) -> None:
         """A committer crash (serving-link error mid-download, commit
@@ -1372,7 +1445,10 @@ class BatchScheduler(Scheduler):
                 pend = self._pending_q.popleft()
                 try:
                     self._complete_solve(pend)
-                except Exception:
+                except Exception as e:
+                    if self.device.type == "cuda":
+                        self._halt_on_card_fault(e)
+                        raise
                     logger.exception("drain commit failed")
                     self._recover_failed_batch(pend)
             return
@@ -4018,7 +4094,11 @@ class BatchScheduler(Scheduler):
         On a mesh the same layouts run through the sharded solve, with
         ONE active pod that no node admits (its mask row is all False),
         so K4 builds and launches on every shard while the state stays
-        unchanged (an inactive pod never reaches K4 on a mesh)."""
+        unchanged (an inactive pod never reaches K4 on a mesh).
+
+        With an adaptive controller that sizes its ladder from measured
+        cost (``auto_rungs``), one steady solve is timed at each rung's
+        batch size and handed to the controller's ``calibrate``."""
         snapshot = self.algorithm.snapshot
         self.cache.update_snapshot(snapshot)
         nt = self.tensor_cache.update(snapshot)
@@ -4065,6 +4145,32 @@ class BatchScheduler(Scheduler):
         solve_packed(
             base + delta_slots, alloc_d, valid_d, req_d, nzr_d, **kw
         )
+        ab = self.autobatch
+        if ab is not None and ab.auto_rungs:
+            # the controller sizes its rung ladder from measured solve
+            # cost: one steady solve at each rung's batch size, every pod
+            # active on an all-False mask row (each walks the whole step,
+            # no node admits it, the state stays unchanged); the median
+            # of 3, so one noisy sample cannot make the ladder (and the
+            # controller's trajectory) differ from run to run
+            for rung in ab.rungs:
+                pods = [
+                    ("req", np.zeros((rung, r), dtype=np.int32)),
+                    ("nzr", np.zeros((rung, 2), dtype=np.int32)),
+                    ("midx", np.zeros(rung, dtype=np.int32)),
+                    ("active", np.ones(rung, dtype=np.int32)),
+                    base[-1],
+                ]
+                samples = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    solve_packed(
+                        pods + delta_slots, alloc_d, valid_d, req_d, nzr_d,
+                        **kw,
+                    )
+                    synchronize(dev)
+                    samples.append(time.perf_counter() - t0)
+                self.rung_solve_seconds[rung] = sorted(samples)[1]
         # the constrained kernel and its layouts: cold, refresh and steady
         # with all three families live, then the steady layout with each
         # family alone (the others ride as ConstPiece device constants, as
@@ -4115,6 +4221,11 @@ class BatchScheduler(Scheduler):
         # seal the build watchdog: every kernel build from here on is a
         # mid-run build (counted AND flight-recorded)
         self._jit_watch.seal()
+        if ab is not None:
+            # the controller drops candidate rungs whose measured solve
+            # is not meaningfully cheaper than the rung above (a no-op
+            # unless it sized its ladder from them: auto_rungs)
+            ab.calibrate(dict(self.rung_solve_seconds))
 
     # -- loop ---------------------------------------------------------------
 

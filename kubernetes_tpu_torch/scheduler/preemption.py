@@ -14,7 +14,10 @@ fault there raises -- nothing steps down to the host oracle. On the CPU
 the search runs K3's plain PyTorch version (the ``torch`` tier) and the
 host oracle below is the floor. Every other pod takes the host oracle,
 which is also the parity reference. Drain planning
-(``plan_replacements``) waits for the lifecycle slice of the port.
+(``plan_replacements``, called by ``NodeDrainer.drain_via_preemption``)
+runs the same search as a plan, at a wave priority below every real
+one: on the card one K3 launch per plan, a fault there raising out of
+the drain.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from kubernetes_tpu_torch.utils import metrics
 logger = logging.getLogger(__name__)
 
 _MAX_INT32 = (1 << 31) - 1
+#: wave priority used by drain PLANNING: below every real pod priority,
+#: so the victim search degenerates into pure fit + nomination carry
+_PLAN_PRIO = -(1 << 31) + 1
 #: the wave tier name for the host-oracle floor
 TIER_HOST = "host"
 
@@ -219,6 +225,19 @@ class Preemptor:
         self.budget_denials = 0
         self.victims_slow_death = 0
         self.wave_solver_tier = ""
+        # drain planning reads CURRENT cache truth through a private
+        # snapshot (the scheduler's own snapshot is pre-batch: it lags
+        # the newest commits by one dispatch, and an idle scheduler
+        # never refreshes it); update_snapshot holds the cache lock, so
+        # refreshing it races nothing. The sibling tensor cache persists
+        # with it so a drain's round-after-round re-plans pay
+        # O(changed rows), not a full repack per call. The plan's pack is
+        # its own object, so its device tensors (cached on the pack by
+        # upload_pack) never overwrite the wave's.
+        self._plan_snapshot = None
+        self._plan_nt_cache = None
+        self._plan_pack = None
+        self._plan_pack_key = None
 
     # -- eligibility --------------------------------------------------------
 
@@ -369,7 +388,8 @@ class Preemptor:
         return True
 
     def _device_answers(
-        self, pods: List[Pod], potentials, pdbs
+        self, pods: List[Pod], potentials, pdbs, prio_override=None,
+        snapshot=None,
     ) -> Tuple[List[Tuple[str, List[Pod], int]], str]:
         """The device victim search (ops/preemption.py) for a group of
         failed pods in priority-desc order, ONE device call: the search
@@ -385,7 +405,11 @@ class Preemptor:
         host oracle.
 
         ``potentials``: per-pod iterable of candidate NodeInfos (already
-        pruned of UnschedulableAndUnresolvable nodes)."""
+        pruned of UnschedulableAndUnresolvable nodes).
+        ``prio_override``: replace every pod's wave priority (the drain
+        planner passes _PLAN_PRIO so no victim is ever eligible).
+        ``snapshot``: solve against this snapshot instead of the
+        algorithm's (the drain planner's cache-fresh private one)."""
         import numpy as np
 
         from kubernetes_tpu_torch.ops.host_masks import static_mask_compact
@@ -397,29 +421,58 @@ class Preemptor:
         from kubernetes_tpu_torch.tensors import pack_pod_batch
         from kubernetes_tpu_torch.utils import timeline as _tl
 
-        snapshot = self.algorithm.snapshot
-        # the interners inside dims/topology are check-then-insert; the
-        # prewarm thread updates a sibling cache sharing them
-        with self._nt_lock:
-            nt = self._tensor_cache.update(snapshot)
-        key = self._pack_cache_key(snapshot, pdbs)
-        with _tl.span("pack_wait"), self._pack_cv:
-            # a prewarm in flight is about to deliver this exact pack:
-            # wait for it instead of duplicating the packing work
-            deadline = time.monotonic() + 2.0
-            while (
-                self._prewarm_busy
-                and self._pack_key != key
-                and time.monotonic() < deadline
-            ):
-                self._pack_cv.wait(0.05)
-            pack = self._pack if self._pack_key == key else None
-        if pack is None:
-            with _tl.span("pack_build"):
-                pack = pack_preemption_state(snapshot, nt, pdbs)
-            with self._pack_cv:
-                self._pack = pack
-                self._pack_key = key
+        if snapshot is not None:
+            # private-snapshot path (drain planning): a PERSISTENT
+            # sibling tensor cache sharing the dims/topology interners
+            # (so both caches lay out the same slots), and a private
+            # pack -- the shared _tensor_cache/_pack may be mid-wave on
+            # the committing thread with the MAIN snapshot, and the two
+            # snapshots must never thrash one cache's slot layout
+            from kubernetes_tpu_torch.tensors import NodeTensorCache
+
+            with self._nt_lock:
+                if self._plan_nt_cache is None:
+                    self._plan_nt_cache = NodeTensorCache(
+                        dims=self._tensor_cache.dims,
+                        topology_encoder=self._tensor_cache.topology,
+                    )
+                nt = self._plan_nt_cache.update(snapshot)
+            # pack cached on (generation, pdbs) like the main path: an
+            # unprogressing drain re-plans every poll tick against an
+            # UNCHANGED snapshot, and rebuilding the pack per 20 ms poll
+            # would turn budget-blocked pacing into a busy loop
+            key = self._pack_cache_key(snapshot, pdbs)
+            pack = self._plan_pack if self._plan_pack_key == key else None
+            if pack is None:
+                with _tl.span("pack_build"):
+                    pack = pack_preemption_state(snapshot, nt, pdbs)
+                self._plan_pack = pack
+                self._plan_pack_key = key
+        else:
+            snapshot = self.algorithm.snapshot
+            # the interners inside dims/topology are check-then-insert;
+            # the prewarm thread updates a sibling cache sharing them
+            with self._nt_lock:
+                nt = self._tensor_cache.update(snapshot)
+            key = self._pack_cache_key(snapshot, pdbs)
+            with _tl.span("pack_wait"), self._pack_cv:
+                # a prewarm in flight is about to deliver this exact
+                # pack: wait for it instead of duplicating the packing
+                # work
+                deadline = time.monotonic() + 2.0
+                while (
+                    self._prewarm_busy
+                    and self._pack_key != key
+                    and time.monotonic() < deadline
+                ):
+                    self._pack_cv.wait(0.05)
+                pack = self._pack if self._pack_key == key else None
+            if pack is None:
+                with _tl.span("pack_build"):
+                    pack = pack_preemption_state(snapshot, nt, pdbs)
+                with self._pack_cv:
+                    self._pack = pack
+                    self._pack_key = key
         n = len(pack.node_names)
         b = len(pods)
 
@@ -493,9 +546,12 @@ class Preemptor:
             nom_req = pack_pod_batch(nom_pods, nt.dims).requests
         else:
             nom_req = np.zeros((0, nt.dims.num_dims), dtype=np.int32)
-        wave_prio = np.clip(
-            [p.spec.priority for p in pods], -(1 << 31), (1 << 31) - 2
-        ).astype(np.int32)
+        if prio_override is not None:
+            wave_prio = np.full(b, prio_override, dtype=np.int32)
+        else:
+            wave_prio = np.clip(
+                [p.spec.priority for p in pods], -(1 << 31), (1 << 31) - 2
+            ).astype(np.int32)
 
         def run():
             inj = get_injector()
@@ -518,7 +574,10 @@ class Preemptor:
             tier, (chosen, victims, viol, nviol) = self.ladder.run(
                 [(tier_name, run)], label="preempt_wave"
             )
-        self.wave_solver_tier = tier
+        if prio_override is None:
+            # a drain PLAN's solve must not relabel the eviction ledger
+            # a concurrent preempt() is about to book against
+            self.wave_solver_tier = tier
         out = []
         for k in range(b):
             idx = int(chosen[k])
@@ -1065,6 +1124,95 @@ class Preemptor:
                 # _apply_preemption re-installs it idempotently
                 self.queue.update_nominated_pod_for_node(pod, node_name)
         return out
+
+    # -- drain planning (NodeDrainer.drain_via_preemption) -------------------
+
+    def plan_eligible(self, pod: Pod) -> bool:
+        """True when the resource-fit + static-mask model answers
+        replacement feasibility EXACTLY for this pod. The subset of
+        device_eligible that needs no Framework at hand (drain planning
+        runs outside a scheduling cycle); pods that fail it take the
+        classic unconditional eviction path."""
+        from kubernetes_tpu_torch.api.types import POD_GROUP_LABEL
+        from kubernetes_tpu_torch.scheduler.batch import solver_supported
+
+        if not solver_supported(pod):
+            return False
+        if any(v.pvc_claim_name for v in pod.spec.volumes):
+            return False
+        if pod.spec.topology_spread_constraints:
+            return False
+        if pod_host_ports(pod):
+            return False
+        a = pod.spec.affinity
+        if a is not None and (
+            a.pod_affinity is not None or a.pod_anti_affinity is not None
+        ):
+            return False
+        if pod.metadata.labels.get(POD_GROUP_LABEL):
+            return False
+        return True
+
+    def plan_replacements(
+        self, pods: List[Pod], exclude_nodes=()
+    ) -> List[str]:
+        """Drain planning: for each pod (usually residents of a cordoned
+        node), a node it could re-place onto RIGHT NOW with free
+        capacity, "" = nowhere -- through the SAME victim search as a
+        wave (on the card one K3 launch, run through the ``cuda`` tier
+        alone like a wave: a fault raises). The wave priority is clamped
+        below every real priority so no victim is ever eligible: a drain
+        plan answers "where does this pod go without cascading more
+        evictions", which degenerates the victim search into pure fit +
+        the nomination carry (each planned pod's claim is visible to the
+        next pod in the plan).
+
+        ``exclude_nodes`` is masked out of every candidate row -- the
+        drained node must never answer for its own pods even when the
+        snapshot has not yet observed its cordon (the unschedulable flag
+        lands with the next dispatch's snapshot update; the plan cannot
+        wait for it). No queue or API side effects -- this is a plan,
+        not a nomination."""
+        if not pods:
+            return []
+        from kubernetes_tpu_torch.ops.affinity import (
+            cluster_has_required_anti_affinity,
+        )
+        from kubernetes_tpu_torch.robustness.lifecycle import respawn_clone
+
+        # plan against CURRENT cache truth through the private snapshot:
+        # the algorithm's snapshot is pre-batch (it lags the newest
+        # commits by one dispatch and an idle scheduler never refreshes
+        # it), and a drain plan made against yesterday's free capacity
+        # evicts pods whose destination is already taken
+        cache = getattr(self.algorithm, "cache", None)
+        if cache is not None:
+            if self._plan_snapshot is None:
+                from kubernetes_tpu_torch.cache.snapshot import Snapshot
+
+                self._plan_snapshot = Snapshot()
+            snapshot = cache.update_snapshot(self._plan_snapshot)
+        else:
+            snapshot = self.algorithm.snapshot
+        if cluster_has_required_anti_affinity(snapshot):
+            # an existing pod's required anti-affinity makes the fit
+            # model inexact for EVERY destination: no plan
+            return [""] * len(pods)
+        exclude = set(exclude_nodes)
+        live = [
+            ni for ni in snapshot.list_node_infos()
+            if ni.node is not None and ni.node_name not in exclude
+        ]
+        # plan the pod's POST-EVICTION incarnation: a pending respawn
+        # clone. Planning the bound pod itself would let the NodeName
+        # model pin its static mask to the very node being drained.
+        clones = [respawn_clone(p) for p in pods]
+        potentials = [live] * len(clones)
+        answers, _tier = self._device_answers(
+            clones, potentials, [], prio_override=_PLAN_PRIO,
+            snapshot=snapshot,
+        )
+        return [node_name for node_name, _v, _nv in answers]
 
     def _clear_nomination(self, pod: Pod) -> None:
         self.queue.delete_nominated_pod_if_exists(pod)

@@ -1003,11 +1003,19 @@ def apply_streaming_config(
             fallback=st.band_priority_threshold,
         )
     if batch:
-        raise ValueError(
-            "the SLO-adaptive batch controller (streaming:) is not ported "
-            "yet: it arrives in a later slice of the port (ROADMAP Queue 1 "
-            "item 8)"
+        from kubernetes_tpu_torch.streaming.autobatch import (
+            AutoBatchController,
         )
+
+        sched.attach_autobatch(AutoBatchController(
+            slo_p99_seconds=st.slo_p99_seconds,
+            min_window=st.min_window_seconds,
+            max_window=st.max_window_seconds,
+            latency_batch=st.latency_batch,
+            max_batch=max_batch,
+            interval_seconds=st.controller_interval_seconds,
+            auto_rungs=getattr(st, "auto_rungs", False),
+        ))
 
 
 def _wire_band_priority_class(

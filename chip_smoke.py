@@ -191,11 +191,62 @@ line is printed only when every phase passed):
    controller's trajectory, the lifecycle counters and one plan launch's
    time by CUDA events; then the phase's seconds. ``device="cpu"``
    rehearses it on the CPU.
-12. ``kernels``: every ported kernel with its launches on the main path,
+12. ``partitions``: multi-active partitioned scheduling, every stack a
+   ``SchedulerApp`` with a ``partition`` block over one APIServer on the
+   card, each warmed on its own carry once the partition map settled.
+   (a) bench.py's ``--partitions 2`` burst (5,000 nodes of 32 CPU / 64Gi
+   / 110 pods, a 4,096-pod warm burst, then 10,000 pods of 250m/512Mi,
+   max_batch 4,096, leases of 10 s renewed every 1 s) on two stacks, and
+   the same burst on one partitioned stack beside it; (b)
+   PartitionZoneAligned/2000 (performance-config.yaml:633-640 as
+   benchmarks/runner.py:457-633 builds it: 2,000 nodes in 4 zones,
+   1,000 init and 3,000 measured pods created one by one, 2 zone-aligned
+   partitions); (c) a mid-burst stack kill (tests/test_partition_chaos.py
+   :98-154 at 2,000 nodes: 4 partitions over 2 stacks, leases of 2 s
+   renewed every 0.2 s; the first stack's renews fail, then 2,000 pods
+   arrive in chunks of 200, one every 0.5 s). Asserts every pod bound, no
+   node over capacity, no incarnation bound twice, each stack's conflict
+   ledger balanced (absorbed == requeues + stale), every batch of every
+   stack on the "cuda" tier with no fallback, and every K1 solve tagged
+   with the one stack whose dispatch made it, K1's launches equal to
+   those solves (a stack holding no node solves without a launch).
+   (a) and (b) replay each stack's batches through the numpy host greedy
+   chained from its post-warm state, and the placements must equal the
+   replay; (b) also holds every zone's nodes in one stack's cache. (c)
+   replays every K1 launch from its recorded pieces and handed carry,
+   and asserts the survivor holds every partition after at least one
+   takeover while the deposed stack holds none, the survivor's cache
+   grew to every node (a full repack and a state upload, or membership
+   row patches), a launch after the adoption saw every node row, its
+   carry audits clean with no divergence. Prints pods/s, p50/p99
+   create-to-bind, per stack its K1 launches, spills, conflicts and
+   stage seconds; (c) the takeover milliseconds and adoptions.
+13. ``tenancy``: the rows that arm the multi-tenant fairness plane
+   (performance-config.yaml:672-715), each on a fresh stack built as
+   benchmarks/runner.py:726-760, 1023-1025 and 1104-1135 build it:
+   ``arm_tenancy`` (the quota gate and the DRF solve order), a tenant per
+   namespace assigned round-robin, a ResourceQuota per tenant where the
+   row has ``quota``. TenantContention/1000ns (250 nodes of 8 CPU / 16Gi
+   / 10 pods, 5,000 pods arriving Poisson at 2,000/s), QuotaChurn/500
+   (100 nodes, 1,000 pods, quotas of 10 pods / 2 CPU / 4Gi raised 4x at
+   45% bound) and PriorityInversionMultiTenant/500 (100 nodes of 4 CPU
+   / 8Gi / 12 pods, 2,000 pods at priority 0 or 100, 9:1, bursty at
+   1,500/s, the band threshold at 100). Asserts the runner's gates (no
+   quota overspent; Jain's index over per-tenant binds >= 0.8 and the
+   least-served tenant >= half its fair share, or Jain >= 0.6 with
+   every priority-100 pod bound; after the raise every pod bound, the
+   parked ones woken by quota events), every solve on "cuda" with no
+   fallback, every K1 launch replayed on the CPU from its pieces and
+   handed carry (the order it solved in is the fair order) and every K3
+   wave through ``preempt_batch_plain``. Prints pods/s, p50/p99
+   arrival-to-bind, Jain, the fair fraction, the dominant-share spread,
+   the quota ledger and K1/K3 launches.
+14. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
-   and K3 add their launches in ``lifecycle``).
+   adds its launches in ``lifecycle``, ``partitions`` and ``tenancy``,
+   K3 in ``lifecycle`` and ``tenancy``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -2380,6 +2431,62 @@ class BindWatcher:
         self._thread.join(timeout=2)
 
 
+def shadow_state(sched):
+    """A scheduler's cluster state (alloc, valid, req, nzr) from its host
+    shadow, which must equal the resident device carry: call it with
+    nothing in flight. None when nothing is resident (a stack holding no
+    node)."""
+    from kubernetes_tpu_torch.scheduler.batch import _to_host
+
+    ds = sched._dev
+    if sched.cache.node_count() == 0:
+        return None
+    with sched._shadow_lock:
+        state = tuple(a.copy() for a in (
+            ds.alloc_shadow, ds.valid_shadow, ds.req_shadow, ds.nzr_shadow))
+        carry = (ds.req_dev, ds.nzr_dev)
+    if carry[0] is not None and not (
+        np.array_equal(_to_host(carry[0]).astype(np.int32), state[2])
+        and np.array_equal(_to_host(carry[1]).astype(np.int32), state[3])
+    ):
+        raise AssertionError("the resident carry differs from the shadow")
+    return state
+
+
+def host_replay(dispatched, state0, config):
+    """Replay dispatched batches in solve order through the numpy host
+    greedy from ``state0`` (``shadow_state``), each against the card's
+    assignment; returns the placements it implies: pod name -> node, for
+    every pod it placed."""
+    from kubernetes_tpu_torch.robustness.ladder import host_greedy_assign
+    from kubernetes_tpu_torch.scheduler.batch import _to_host
+
+    want = {}
+    if state0 is None:  # the stack holds no node: nothing may place
+        if any((_to_host(p["assignments_dev"])[:p["b"]] >= 0).any()
+               for p in dispatched):
+            raise AssertionError("a stack holding no node placed a pod")
+        return want
+    alloc0, valid0, req_s, nzr_s = state0
+    req_s, nzr_s = req_s.astype(np.int32), nzr_s.astype(np.int32)
+    for p in dispatched:
+        b = p["b"]
+        active = np.zeros(p["req"].shape[0], bool)
+        active[:b] = True
+        asg, req_s, nzr_s = host_greedy_assign(
+            alloc0, req_s, nzr_s, valid0, p["req"], p["nzr"],
+            p["mask_rows"], p["mask_index_solved"], active, config=config,
+        )
+        dev_asg = _to_host(p["assignments_dev"])[:b]
+        if not np.array_equal(dev_asg, asg[:b]):
+            raise AssertionError("device assignments differ from the replay")
+        for k in range(b):
+            if asg[k] >= 0:
+                pod = p["solver_infos"][int(p["order"][k])].pod
+                want[pod.metadata.name] = p["names"][int(asg[k])]
+    return want
+
+
 def burst(gk, device=None, mesh=None, sk=None):
     """SchedulingBasic through the entry points (the ``burst`` phase); with
     ``mesh`` (a NodeMesh) and ``sk`` (the K4 module) the ``mesh_burst``
@@ -2388,8 +2495,6 @@ def burst(gk, device=None, mesh=None, sk=None):
     from kubernetes_tpu_torch.apiserver.server import APIServer
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.informer import InformerFactory
-    from kubernetes_tpu_torch.robustness.ladder import host_greedy_assign
-    from kubernetes_tpu_torch.scheduler.batch import _to_host
     from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
     from kubernetes_tpu_torch.testing import make_node, make_pod
     from kubernetes_tpu_torch.utils import metrics
@@ -2447,20 +2552,9 @@ def burst(gk, device=None, mesh=None, sk=None):
 
     sched._dispatch_solve = recording_dispatch
 
-    # the post-warmup cluster state, from the host shadow -- which must
-    # equal the resident device carry with nothing in flight
-    ds = sched._dev
-    with sched._shadow_lock:
-        alloc0 = ds.alloc_shadow.copy()
-        valid0 = ds.valid_shadow.copy()
-        req0 = ds.req_shadow.copy()
-        nzr0 = ds.nzr_shadow.copy()
-        carry = (ds.req_dev, ds.nzr_dev)
-    if carry[0] is not None and not (
-        np.array_equal(_to_host(carry[0]).astype(np.int32), req0)
-        and np.array_equal(_to_host(carry[1]).astype(np.int32), nzr0)
-    ):
-        raise AssertionError("the resident carry differs from the shadow")
+    # the post-warmup cluster state, from the host shadow
+    state0 = shadow_state(sched)
+    alloc0 = state0[0]
 
     tiers0 = dict(sched.ladder.solves_by_tier)
     counters0 = dict(
@@ -2557,26 +2651,7 @@ def burst(gk, device=None, mesh=None, sk=None):
     # host replay: the burst's batches in solve order through the numpy
     # host greedy, from the post-warmup state
     t_replay = time.perf_counter()
-    req_s, nzr_s = req0.astype(np.int32), nzr0.astype(np.int32)
-    want = {}
-    for p in dispatched:
-        b = p["b"]
-        padded = p["req"].shape[0]
-        active = np.zeros(padded, bool)
-        active[:b] = True
-        asg, req_s, nzr_s = host_greedy_assign(
-            alloc0, req_s, nzr_s, valid0, p["req"], p["nzr"],
-            p["mask_rows"], p["mask_index_solved"], active,
-            config=sched.solver_config,
-        )
-        dev_asg = _to_host(p["assignments_dev"])[:b]
-        if not np.array_equal(dev_asg, asg[:b]):
-            raise AssertionError("device assignments differ from the replay")
-        for k in range(b):
-            pod = p["solver_infos"][int(p["order"][k])].pod
-            want[pod.metadata.name] = (
-                p["names"][int(asg[k])] if asg[k] >= 0 else ""
-            )
+    want = host_replay(dispatched, state0, sched.solver_config)
     replay_s = time.perf_counter() - t_replay
     mismatched = [n for n in names if want.get(n) != placed.get(n)]
     if mismatched:
@@ -3738,6 +3813,775 @@ def lifecycle(gk, pk, device=None, rows=LIFECYCLE_ROWS):
     return totals
 
 
+# -- phase 12: multi-active partitioned stacks --------------------------------
+
+# bench.py:738-900 (--partitions 2): the burst's cluster and pods through
+# two partitioned stacks over one apiserver, and through one stack;
+# benchmarks/config/performance-config.yaml:633-640 as
+# benchmarks/runner.py:457-633 builds it; and the mid-burst stack kill of
+# tests/test_partition_chaos.py:98-154 at PartitionZoneAligned's size
+PARTITION_ROWS = [
+    dict(name="PartitionedBurst/5000", source="bench.py:738-900",
+         nodes=N_NODES, pods=N_PODS, warm=MAX_BATCH, chunk=256,
+         max_batch=MAX_BATCH, stacks=2, partitions=2, lease=10.0, retry=1.0),
+    dict(name="PartitionedBurst/5000 on one stack", source="bench.py:738-900",
+         nodes=N_NODES, pods=N_PODS, warm=MAX_BATCH, chunk=256,
+         max_batch=MAX_BATCH, stacks=1, partitions=1, lease=10.0, retry=1.0),
+    dict(name="PartitionZoneAligned/2000",
+         source="benchmarks/config/performance-config.yaml:633-640",
+         nodes=2000, zones=4, init=1000, pods=3000, chunk=1, max_batch=1024,
+         stacks=2, partitions=2, zone_aligned=True, lease=10.0, retry=1.0),
+    dict(name="PartitionStackKill/2000",
+         source="tests/test_partition_chaos.py:98-154",
+         nodes=2000, pods=2000, chunk=200, max_batch=1024, stacks=2,
+         partitions=4, lease=2.0, retry=0.2, kill=True,
+         # a chunk every quarter lease: the burst outlasts the lapse, so
+         # the takeover lands mid-burst (unpaced, the whole burst can
+         # bind before the lease lapses, and nothing is adopted mid-burst)
+         chunk_interval=0.5),
+]
+PARTITION_WAIT_S = 180
+
+
+def over_capacity(client):
+    """Nodes whose bound pods request more CPU, memory or pod slots than
+    the node allocates."""
+    from kubernetes_tpu_torch.api.types import (
+        RESOURCE_CPU, RESOURCE_MEMORY, RESOURCE_PODS, pod_resource_requests,
+    )
+
+    used = {}
+    for p in client.list_pods()[0]:
+        if p.spec.node_name:
+            req = pod_resource_requests(p)
+            u = used.setdefault(p.spec.node_name, [0, 0, 0])
+            u[0] += req.get(RESOURCE_CPU, 0)
+            u[1] += req.get(RESOURCE_MEMORY, 0)
+            u[2] += 1
+    over = []
+    for n in client.list_nodes()[0]:
+        a = n.status.allocatable
+        u = used.get(n.metadata.name, (0, 0, 0))
+        if (u[0] > a.get(RESOURCE_CPU, 0) or u[1] > a.get(RESOURCE_MEMORY, 0)
+                or u[2] > a.get(RESOURCE_PODS, 0)):
+            over.append(n.metadata.name)
+    return over
+
+
+def latency_quantiles(bind_times, create_times, names):
+    lat = sorted(bind_times[n] - create_times[n] for n in names)
+    return lat[len(lat) // 2], lat[min(len(lat) - 1, len(lat) * 99 // 100)]
+
+
+def partition_row(row, gk, device=None):
+    """One partitioned row through ``SchedulerApp``: the stacks split the
+    partitions, each is warmed on its own carry, then the measured pods
+    land (and, with ``kill``, the first stack's renews fail first). Every
+    K1 launch is tagged with the stack whose dispatch made it and
+    replayed: through the numpy host greedy chained from the stack's
+    post-warm state, or, where the carry changes under the burst (the
+    kill's adoption), from its recorded pieces and handed carry."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.config.types import (
+        KubeSchedulerConfiguration, PartitionConfiguration,
+    )
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.app import SchedulerApp
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    n_parts = row["partitions"]
+    kill = row.get("kill", False)
+    t_setup = time.perf_counter()
+    server = APIServer()
+
+    def cfg():
+        return KubeSchedulerConfiguration(partition=PartitionConfiguration(
+            enabled=True, num_partitions=n_parts,
+            zone_aligned=row.get("zone_aligned", False),
+            lease_duration_seconds=row["lease"],
+            retry_period_seconds=row["retry"],
+        ))
+
+    apps = [SchedulerApp(config=cfg(), server=server, device=device)
+            for _ in range(row["stacks"])]
+    threads = {}
+    for i, app in enumerate(apps):
+        if (app.sched.device.type == "cuda") != on_card:
+            raise AssertionError(f"{name}: a stack solves on {app.sched.device}")
+        app.sched.max_batch = row["max_batch"]
+        orig_start = app.sched.start
+
+        def start(i=i, orig_start=orig_start):
+            threads[i] = orig_start()
+            return threads[i]
+
+        app.sched.start = start  # keep the dispatcher thread to stop it
+    client = apps[0].client
+    zones = row.get("zones", 10)
+    for i in range(row["nodes"]):
+        client.create_node(
+            make_node(f"node-{i}").capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % zones}").label(HOST_KEY, f"node-{i}")
+            .obj()
+        )
+    orig_solve = batch_mod.solve_packed
+    orig_dispatch = [app.sched._dispatch_solve for app in apps]
+    orig_observe = metrics.partition_takeover_ms.observe
+    takeover_ms = []
+    watch = None
+    try:
+        for app in apps:
+            app.start()
+        # settled: every partition held by one stack, every stack its
+        # share (the first stack started claims them all, then hands
+        # the later stacks theirs)
+        deadline = time.time() + 30
+        while True:
+            held = [a.coordinator.held_partitions() for a in apps]
+            if sorted(k for h in held for k in h) == list(range(n_parts)) and (
+                    min(map(len, held)) >= n_parts // len(apps)):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"{name}: the partition map never settled")
+            time.sleep(0.05)
+        # each stack's carry is its own: warm every one on its own slice
+        for app in apps:
+            app.sched.warmup()
+
+        def check_alive():
+            for i, app in enumerate(apps):
+                if app.sched.card_fault is not None:
+                    raise AssertionError(
+                        f"{name}: stack {i} failed on the card: "
+                        f"{app.sched.card_fault!r}") from app.sched.card_fault
+                if not threads[i].is_alive():
+                    raise AssertionError(f"{name}: stack {i}'s dispatcher died")
+
+        def wait_for(cond, what):
+            deadline = time.time() + PARTITION_WAIT_S
+            while not cond():
+                check_alive()
+                if time.time() > deadline:
+                    raise AssertionError(f"{name}: timed out waiting for {what}")
+                time.sleep(0.05)
+
+        warm_n = row.get("warm", 0) or row.get("init", 0)
+        if warm_n:
+            prefix = "warm" if row.get("warm") else "init"
+            warm = [make_pod(f"{prefix}-{i}").container(
+                cpu="100m" if prefix == "warm" else "250m",
+                memory="128Mi" if prefix == "warm" else "512Mi").obj()
+                for i in range(warm_n)]
+            watch = BindWatcher(server, [p.metadata.name for p in warm])
+            if prefix == "warm":
+                client.create_pods_bulk(warm)
+            else:  # the runner's init pods, one create each
+                for p in warm:
+                    client.create_pod(p)
+            wait_for(lambda: watch._outstanding <= 0, f"the {prefix} pods")
+            watch.stop()
+            for app in apps:
+                app.sched.wait_for_inflight_binds(timeout=60)
+        setup_s = time.perf_counter() - t_setup
+
+        # record every dispatch of every stack and every solve of the
+        # process; a solve belongs to the stack whose dispatch holds its
+        # answer
+        dispatched = [[] for _ in apps]
+        calls = []
+        states0 = [None if kill else shadow_state(a.sched) for a in apps]
+        recording_solve = None
+        for i, app in enumerate(apps):
+            rd, rs = solve_recorders(
+                orig_dispatch[i], orig_solve, dispatched[i], set(), calls)
+            app.sched._dispatch_solve = rd
+            recording_solve = recording_solve or rs
+        batch_mod.solve_packed = recording_solve
+        metrics.partition_takeover_ms.observe = (
+            lambda v, **kw: (takeover_ms.append(v), orig_observe(v, **kw)))
+        tiers0 = [dict(a.sched.ladder.solves_by_tier) for a in apps]
+        fb0 = [a.sched.pods_fallback + a.sched.envelope_fallbacks for a in apps]
+        glob0 = (counter_total(metrics.solver_fallbacks)
+                 + counter_total(metrics.solve_retries))
+        stages0 = [dict(a.sched.stage_seconds) for a in apps]
+        div0 = [a.sched.carry_divergences for a in apps]
+        survivor = apps[-1]
+        grown0 = dict(
+            nodes=survivor.sched.cache.node_count(),
+            full_repacks=survivor.sched.tensor_cache.full_repacks,
+            membership_row_patches=survivor.sched.membership_row_patches,
+            state_uploads=survivor.sched.state_uploads,
+        )
+        if kill:
+            # the first stack's renews fail from here on: its partitions
+            # lapse mid-burst and the survivor adopts them
+            apps[0].coordinator.fault_injector = FaultInjector(FaultProfile(
+                "stack-kill", seed=0,
+                points={FaultPoint.LEASE_RENEW_FAIL: PointConfig(rate=1.0)},
+            ))
+        gk.launches = 0  # the counts of THIS run of the path
+        pods = [make_pod(f"measure-{i}").container(cpu="250m", memory="512Mi")
+                .obj() for i in range(row["pods"])]
+        names = [p.metadata.name for p in pods]
+        watch = BindWatcher(server, names)
+        create_times = {}
+        start = time.perf_counter()
+        chunk = row["chunk"]
+        for lo in range(0, len(pods), chunk):
+            if lo:
+                time.sleep(row.get("chunk_interval", 0.0))
+            now = time.perf_counter()
+            for p in pods[lo:lo + chunk]:
+                create_times[p.metadata.name] = now
+            if chunk == 1:
+                client.create_pod(pods[lo])
+            else:
+                client.create_pods_bulk(pods[lo:lo + chunk])
+        wait_for(lambda: watch._outstanding <= 0, "the measured pods")
+        elapsed = max(watch.bind_times[n] for n in names) - start
+        if kill:
+            wait_for(lambda: len(survivor.coordinator.held_partitions())
+                     == n_parts and not apps[0].coordinator.held_partitions(),
+                     "the survivor to hold every partition")
+        for app in apps:
+            app.sched.wait_for_inflight_binds(timeout=60)
+        check_alive()
+        # each dispatcher lands what is in flight and stops before the
+        # counts are read
+        for i, app in enumerate(apps):
+            app.sched._stop.set()
+            threads[i].join(timeout=60)
+            if threads[i].is_alive():
+                raise AssertionError(f"{name}: stack {i} did not stop")
+            if app.sched.card_fault is not None:
+                raise AssertionError(f"{name}: stack {i} failed on the card")
+        k1_launches = gk.launches
+        audit = survivor.sched.audit_carry() if kill else None
+        # the coordinators as the run left them (stopping a stack
+        # releases its leases, and a live sibling then adopts them)
+        coords = [dict(
+            partitions=sorted(a.coordinator.held_partitions()),
+            takeovers=a.coordinator.takeovers,
+            adoptions_bound=a.coordinator.adoptions_bound,
+            adoptions_requeued=a.coordinator.adoptions_requeued,
+        ) for a in apps]
+        cached = [set(a.sched.cache.known_node_names()) for a in apps]
+        grown = dict(
+            nodes=survivor.sched.cache.node_count(),
+            full_repacks=survivor.sched.tensor_cache.full_repacks,
+            membership_row_patches=survivor.sched.membership_row_patches,
+            state_uploads=survivor.sched.state_uploads,
+        )
+    finally:
+        if watch is not None:
+            watch.stop()
+        batch_mod.solve_packed = orig_solve
+        metrics.partition_takeover_ms.observe = orig_observe
+        for app, d in zip(apps, orig_dispatch):
+            app.sched._dispatch_solve = d
+        for app in apps:
+            app.stop()
+
+    placed = {p.metadata.name: p.spec.node_name for p in client.list_pods()[0]}
+    bound = sum(1 for n in names if placed.get(n))
+    if bound != len(names):
+        raise AssertionError(f"{name}: only {bound}/{len(names)} pods bound")
+    over = over_capacity(client)
+    if over:
+        raise AssertionError(f"{name}: {len(over)} nodes over capacity")
+    doubles = double_binds(server, 0)
+    if doubles:
+        raise AssertionError(f"{name}: {len(doubles)} incarnations bound twice")
+    stacks = []
+    for i, app in enumerate(apps):
+        s = app.sched
+        tiers = {k: v - tiers0[i].get(k, 0)
+                 for k, v in s.ladder.solves_by_tier.items()}
+        if set(k for k, v in tiers.items() if v) - {tier}:
+            raise AssertionError(f"{name}: stack {i} off the {tier} tier: {tiers}")
+        if any(p["tier"] != tier for p in dispatched[i]):
+            raise AssertionError(f"{name}: stack {i} dispatched off the card")
+        if s.pods_fallback + s.envelope_fallbacks != fb0[i]:
+            raise AssertionError(f"{name}: stack {i} fell back")
+        if s.bind_conflicts_absorbed != (
+                s.conflict_requeues + s.conflict_stale_binds):
+            raise AssertionError(f"{name}: stack {i}'s conflict ledger is off")
+        stacks.append(dict(
+            **coords[i], nodes_cached=len(cached[i]),
+            batches=len(dispatched[i]),
+            solves_by_tier=tiers, pods_spilled=s.pods_spilled,
+            bind_conflicts_absorbed=s.bind_conflicts_absorbed,
+            conflict_requeues=s.conflict_requeues,
+            conflict_stale_binds=s.conflict_stale_binds,
+            carry_divergences=s.carry_divergences - div0[i],
+            stage_seconds={k: v - stages0[i].get(k, 0.0)
+                           for k, v in s.stage_seconds.items()},
+        ))
+    moved = (counter_total(metrics.solver_fallbacks)
+             + counter_total(metrics.solve_retries) - glob0)
+    if moved:
+        raise AssertionError(f"{name}: {moved} fallbacks or retries")
+    # every greedy solve belongs to exactly one stack's dispatch
+    mine = [{id(p["assignments_dev"]) for p in d} for d in dispatched]
+    greedy = [c for c in calls if c["mode"] == "greedy"]
+    for c in greedy:
+        owners = [i for i, m in enumerate(mine) if id(c["out"][0]) in m]
+        if len(owners) != 1:
+            raise AssertionError(f"{name}: a K1 solve of no single stack")
+        c["stack"] = owners[0]
+    for i, st in enumerate(stacks):
+        # the node rows each solve saw; K1 answers a solve over no node
+        # (a stack holding none) without a launch
+        rows_i = [int(c["carry"][0].shape[0]) for c in greedy
+                  if c["stack"] == i]
+        st["greedy_kernel_launches"] = sum(1 for n in rows_i if n)
+        st["launch_rows"] = sorted(set(rows_i))
+    launched = sum(st["greedy_kernel_launches"] for st in stacks)
+    if on_card and k1_launches != launched:
+        raise AssertionError(
+            f"{name}: {k1_launches} K1 launches, {launched} recorded")
+    if on_card and any(st["greedy_kernel_launches"] <= 0
+                       for st in stacks if st["nodes_cached"]):
+        raise AssertionError(f"{name}: a stack holding nodes never launched K1")
+    t_replay = time.perf_counter()
+    want = {}
+    for i, app in enumerate(apps):
+        if kill:
+            replay_solves(calls, dispatched[i])
+        else:
+            want.update(host_replay(dispatched[i], states0[i],
+                                    app.sched.solver_config))
+    replay_s = time.perf_counter() - t_replay
+    mismatched = [n for n in want if want[n] != placed.get(n)]
+    if mismatched:
+        raise AssertionError(
+            f"{name}: {len(mismatched)} placements differ from the host "
+            f"replay, e.g. {mismatched[:3]}")
+    rec = dict(
+        row=name, source=row["source"], stacks=len(apps), partitions=n_parts,
+        nodes=row["nodes"], pods=len(names), bound=bound, seconds=elapsed,
+        pods_per_sec=len(names) / elapsed,
+        greedy_kernel_launches=k1_launches, replay_equal=True,
+        replay="recorded pieces and carry" if kill else "host greedy chain",
+        replay_seconds=replay_s, setup_seconds=setup_s, per_stack=stacks,
+    )
+    (rec["p50_pod_to_bind_s"],
+     rec["p99_pod_to_bind_s"]) = latency_quantiles(
+        watch.bind_times, create_times, names)
+    if row.get("zone_aligned"):
+        # every zone's nodes live in exactly one stack's cache
+        zone_of = {f"node-{i}": i % zones for i in range(row["nodes"])}
+        owners = {}
+        for i, nodes in enumerate(cached):
+            for n in nodes:
+                owners.setdefault(zone_of[n], set()).add(i)
+        split = {z: o for z, o in owners.items() if len(o) != 1}
+        if split or len(owners) != zones or sum(map(len, cached)) != row["nodes"]:
+            raise AssertionError(f"{name}: zones split across stacks: {split}")
+        rec["zones_by_stack"] = {
+            i: sorted(z for z, o in owners.items() if i in o)
+            for i in range(len(apps))}
+    if kill:
+        delta = {k: grown[k] - grown0[k] for k in grown}
+        if (coords[-1]["partitions"] != list(range(n_parts))
+                or coords[0]["partitions"] or coords[-1]["takeovers"] < 1):
+            raise AssertionError(f"{name}: the survivor did not adopt all")
+        # the survivor's cache grew by the adopted nodes: a full repack
+        # and the state upload of the grown tensor, or membership row
+        # patches into the slot headroom
+        if grown["nodes"] != row["nodes"] or not (
+                delta["full_repacks"] and delta["state_uploads"]
+                or delta["membership_row_patches"]):
+            raise AssertionError(f"{name}: the survivor's cache did not grow: "
+                                 f"{grown0} -> {grown}")
+        if audit != "clean" or stacks[-1]["carry_divergences"]:
+            raise AssertionError(
+                f"{name}: the survivor's carry audit {audit!r}, "
+                f"{stacks[-1]['carry_divergences']} divergences")
+        rows_seen = stacks[-1]["launch_rows"]
+        if rows_seen[-1] < grown["nodes"]:
+            # the launches after adoption see every node row
+            raise AssertionError(
+                f"{name}: the survivor's K1 launches saw rows {rows_seen}")
+        rec.update(
+            partition_takeover_ms=takeover_ms, survivor_before=grown0,
+            survivor_after=grown, survivor_carry_audit=audit,
+            fenced_conflicts=sum(s["bind_conflicts_absorbed"] for s in stacks),
+        )
+    emit("partitions", **rec)
+    return rec
+
+
+def partitions(gk, device=None, rows=PARTITION_ROWS):
+    """The ``partitions`` phase: every row on a fresh apiserver."""
+    t0 = time.perf_counter()
+    recs = [partition_row(row, gk, device) for row in rows]
+    emit("partitions_phase", rows=len(recs), seconds=time.perf_counter() - t0,
+         greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs))
+    return recs
+
+
+# -- phase 13: the multi-tenant fairness plane --------------------------------
+
+# benchmarks/config/performance-config.yaml with the defaults of :9-15,
+# each row on a fresh stack as benchmarks/runner.py:726-760, 1023-1025
+# and 1104-1135 build it: tenant identity is the namespace, assigned
+# round-robin; `quota` makes one ResourceQuota per tenant; arm_tenancy
+# wires the quota gate and the DRF solve order. Nothing is cut.
+TENANCY_ROWS = [
+    dict(name="TenantContention/1000ns", source=":672-681", nodes=250,
+         node=dict(cpu="8", memory="16Gi", pods=10), namespaces=1000,
+         measured=5000, pod=dict(cpu="500m", memory="512Mi"),
+         min_bound_fraction=0.45, min_jain=0.8, min_fair_fraction=0.5,
+         streaming=dict(trace="poisson", rate=2000, seed=23, sloP99="5s")),
+    dict(name="QuotaChurn/500", source=":688-696", nodes=100, namespaces=50,
+         measured=1000, pod=dict(cpu="100m", memory="128Mi"),
+         quota=dict(pods=10, cpu="2", memory="4Gi"),
+         quota_raise=dict(at_fraction=0.45, factor=4)),
+    dict(name="PriorityInversionMultiTenant/500", source=":703-715",
+         nodes=100, node=dict(cpu="4", memory="8Gi", pods=12), namespaces=10,
+         measured=2000, pod=dict(cpu="500m", memory="512Mi",
+                                 priority_mix=[(0, 9), (100, 1)]),
+         min_bound_fraction=0.35, min_jain=0.6, high_priority_threshold=100,
+         streaming=dict(trace="bursty", rate=1500, seed=29, sloP99="2s",
+                        bandPriorityThreshold=100)),
+]
+TENANCY_WAIT_S = 180
+
+
+def tenancy_pod(make_pod, i, row):
+    """Measured pod ``i`` as benchmarks/runner.py:139 _build_pod and
+    :1104-1111 build it: the weighted priority rotation, the tenant
+    round-robin."""
+    spec = row["pod"]
+    w = make_pod(f"measure-{i}", f"tenant-{i % row['namespaces']}").container(
+        cpu=spec["cpu"], memory=spec["memory"])
+    if spec.get("priority_mix"):
+        pattern = [p for p, weight in spec["priority_mix"] for _ in range(weight)]
+        w.priority(pattern[i % len(pattern)])
+    return w.obj()
+
+
+def tenancy_row(row, gk, pk, device=None):
+    """One tenancy row through the port's entry points: its stack with
+    the fairness plane armed, the tenants' quotas, then the measured pods
+    (arriving on the row's trace, or created one by one), the quota raise
+    on its own thread. Holds the row to the runner's gates
+    (benchmarks/runner.py:1596-1680); every K1 launch is replayed on the
+    CPU from its recorded pieces and handed carry, every K3 launch
+    through ``preempt_batch_plain``."""
+    from kubernetes_tpu_torch.api.resource import parse_cpu, parse_memory
+    from kubernetes_tpu_torch.api.types import ObjectMeta, ResourceQuota
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.ops import preemption as pre_mod
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import (
+        apply_streaming_config, new_scheduler,
+    )
+    from kubernetes_tpu_torch.scheduler.tenancy import arm_tenancy
+    from kubernetes_tpu_torch.streaming.arrivals import (
+        ArrivalEngine, trace_from_config,
+    )
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    n_ns = row["namespaces"]
+    t_setup = time.perf_counter()
+    errors = []
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH, device=device)
+    if (sched.device.type == "cuda") != on_card:
+        raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    streaming = None
+    if row.get("streaming"):
+        cfg = load_config_from_dict(
+            {"streaming": {"enabled": True, **row["streaming"]}})
+        apply_streaming_config(sched, cfg, informers, batch=True,
+                               max_batch=MAX_CONSTRAINED_BATCH)
+        streaming = cfg.streaming
+    qc = arm_tenancy(sched, client, informers)  # quota gate + DRF order
+    if qc is None or sched.tenant_shares is None:
+        raise AssertionError(f"{name}: the fairness plane is not armed")
+    if row.get("quota"):
+        parse = dict(cpu=parse_cpu, memory=parse_memory)
+        hard = {k: parse.get(k, int)(v) for k, v in row["quota"].items()}
+        for t in range(n_ns):
+            server.create(ResourceQuota(
+                metadata=ObjectMeta(name="quota", namespace=f"tenant-{t}"),
+                hard=dict(hard)))
+    node = row.get("node", dict(cpu="32", memory="64Gi", pods=110))
+    for i in range(row["nodes"]):
+        client.create_node(
+            make_node(f"node-{i}").capacity(**node)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+            .obj())
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    qc.sync_all()
+    qc.start()
+    sched.warmup()
+    sched_thread = sched.start()
+
+    dispatched, calls, k3_calls = [], [], []
+    orig_dispatch, orig_solve = sched._dispatch_solve, batch_mod.solve_packed
+    orig_k3 = pk.preempt_solve
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, set(), calls)
+
+    def recording_k3(*args):
+        out = orig_k3(*args)
+        k3_calls.append((args, out))
+        return out
+
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    pk.preempt_solve = recording_k3
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    wave_tiers0 = dict(sched.preemptor.ladder.solves_by_tier)
+    moved0 = (counter_total(metrics.solver_fallbacks)
+              + counter_total(metrics.solve_retries) + sched.pods_fallback
+              + sched.envelope_fallbacks + sched.preemptor.host_preemptions)
+    stages0 = dict(sched.stage_seconds)
+    gk.launches = 0  # the counts of THIS row's run of the path
+    pk.launches = 0
+    pods = [tenancy_pod(make_pod, i, row) for i in range(row["measured"])]
+    names = [p.metadata.name for p in pods]
+    watch = BindWatcher(server, names)
+    engine = raiser = None
+    create_times = {}
+    threshold = row.get("high_priority_threshold")
+
+    def check_alive():
+        if errors:
+            raise AssertionError(f"{name}: {errors[0]!r}") from errors[0]
+        if sched.card_fault is not None:
+            raise AssertionError(
+                f"{name}: a batch failed on the card: {sched.card_fault!r}"
+            ) from sched.card_fault
+        if not sched_thread.is_alive():
+            raise AssertionError(f"{name}: the scheduler thread died")
+
+    def bound_count():
+        return len(names) - watch._outstanding
+
+    def wait_for(cond, what, timeout=TENANCY_WAIT_S):
+        deadline = time.time() + timeout
+        while not cond():
+            check_alive()
+            if time.time() > deadline:
+                raise AssertionError(f"{name}: timed out waiting for {what}")
+            time.sleep(0.05)
+
+    def raise_quotas():
+        # the runner's _run_quota_scenario (:1133-1149)
+        try:
+            qr = row["quota_raise"]
+            wait_for(lambda: bound_count() >= int(qr["at_fraction"] * len(names)),
+                     "the quota raise's fraction")
+            for t in range(n_ns):
+                client.update_resource_quota_status(
+                    f"tenant-{t}", "quota",
+                    lambda obj: setattr(obj, "hard", {
+                        k: v * qr["factor"] for k, v in obj.hard.items()}))
+        except BaseException as e:  # noqa: BLE001 - reported by check_alive
+            errors.append(e)
+
+    setup_s = time.perf_counter() - t_setup
+    try:
+        start = time.perf_counter()
+        if row.get("quota_raise"):
+            raiser = threading.Thread(target=raise_quotas, daemon=True)
+            raiser.start()
+        if streaming is not None:
+            dur = len(pods) / streaming.rate_pods_per_sec
+            offsets = trace_from_config(streaming, duration=dur)
+            while offsets.size < len(pods):
+                dur *= 1.3
+                offsets = trace_from_config(streaming, duration=dur)
+            engine = ArrivalEngine(
+                client, offsets[:len(pods)], lambda i: pods[i],
+                depth_fn=sched.queue.active_count,
+                max_queue_depth=streaming.max_queue_depth)
+            engine.start()
+        else:
+            for p in pods:
+                create_times[p.metadata.name] = time.perf_counter()
+                client.create_pod(p)
+        frac = row.get("min_bound_fraction", 1.0)
+        need = int(frac * len(names))
+        # the runner's wait_fraction (:106-124): the fraction bound and
+        # no bind for 2 s; a full row waits for every pod
+        quiet = {"count": -1, "since": time.time()}
+
+        def settled():
+            n = bound_count()
+            if n != quiet["count"]:
+                quiet.update(count=n, since=time.time())
+                return n >= len(names)
+            return n >= need and time.time() - quiet["since"] >= 2.0
+
+        wait_for(settled, f"{frac:.0%} of the measured pods")
+        if engine is not None:
+            engine.stop()
+            create_times.update(engine.created_ts)
+        if raiser is not None:
+            raiser.join(timeout=60)
+        if threshold is not None:
+            # the high band binds through preemption waves that land
+            # after the bulk went quiet (runner :1604-1619)
+            wait_for(lambda: not any(
+                p.spec.priority >= threshold and not p.spec.node_name
+                and p.metadata.deletion_timestamp is None
+                for p in client.list_pods()[0]), "the high band", 120)
+        sched.wait_for_inflight_binds(timeout=60)
+        check_alive()
+        sched._stop.set()
+        sched_thread.join(timeout=60)
+        if sched_thread.is_alive():
+            raise AssertionError(f"{name}: the scheduler did not stop")
+        if sched.card_fault is not None:
+            raise AssertionError(f"{name}: a batch failed on the card")
+        k1_launches, k3_launches = gk.launches, pk.launches
+    finally:
+        if engine is not None:
+            engine.stop()
+        watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+        pk.preempt_solve = orig_k3
+        qc.stop()
+        sched.stop()
+        informers.stop()
+
+    all_pods = client.list_pods()[0]
+    bound_names = [n for n in names if n in watch.bind_times]
+    elapsed = max(watch.bind_times[n] for n in bound_names) - start
+    per_ns = {}
+    for p in all_pods:
+        if p.spec.node_name and p.metadata.namespace.startswith("tenant-"):
+            per_ns[p.metadata.namespace] = per_ns.get(p.metadata.namespace, 0) + 1
+    counts = [per_ns.get(f"tenant-{t}", 0) for t in range(n_ns)]
+    total = sum(counts)
+    jain = total * total / (len(counts) * sum(c * c for c in counts)) if total else 0.0
+    fair = total / len(counts)
+    fair_fraction = min(counts) / fair if fair > 0 else 1.0
+    overspend = [
+        (q.metadata.namespace, r) for q in client.list_resource_quotas()[0]
+        for r, hard in q.hard.items() if q.status.used.get(r, 0) > hard]
+    high_unbound = None if threshold is None else sum(
+        1 for p in all_pods if p.spec.priority >= threshold
+        and not p.spec.node_name and p.metadata.deletion_timestamp is None)
+    tiers = {k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()}
+    wave_tiers = {k: v - wave_tiers0.get(k, 0)
+                  for k, v in sched.preemptor.ladder.solves_by_tier.items()}
+    moved = (counter_total(metrics.solver_fallbacks)
+             + counter_total(metrics.solve_retries) + sched.pods_fallback
+             + sched.envelope_fallbacks + sched.preemptor.host_preemptions
+             - moved0)
+
+    # the runner's gates (:1596-1680), then the port's own
+    if overspend:
+        raise AssertionError(f"{name}: quota overspent: {overspend[:3]}")
+    if row.get("min_jain") is not None and jain < row["min_jain"]:
+        raise AssertionError(f"{name}: Jain {jain:.4f} < {row['min_jain']}")
+    if (row.get("min_fair_fraction") is not None
+            and fair_fraction < row["min_fair_fraction"]):
+        raise AssertionError(f"{name}: fair fraction {fair_fraction:.4f}")
+    if high_unbound:
+        raise AssertionError(f"{name}: {high_unbound} high-priority pods unbound")
+    if bound_count() < need:
+        raise AssertionError(f"{name}: {bound_count()}/{len(names)} bound")
+    if row.get("quota_raise") and (
+            len(bound_names) != len(names) or qc.admissions_denied <= 0
+            or qc.releases <= 0 or sched.queue.quota_parked_count()):
+        # every pod bound after the raise, the parked ones woken by the
+        # quota events
+        raise AssertionError(
+            f"{name}: {len(bound_names)}/{len(names)} bound, "
+            f"{qc.admissions_denied} denials, {qc.releases} releases, "
+            f"{sched.queue.quota_parked_count()} still parked")
+    if set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{name}: batches off the {tier} tier: {tiers}")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{name}: a dispatch solved off the {tier} tier")
+    if set(k for k, v in wave_tiers.items() if v) - {tier}:
+        raise AssertionError(f"{name}: K3 off the {tier} tier: {wave_tiers}")
+    if moved:
+        raise AssertionError(f"{name}: {moved} fallbacks, retries or host "
+                             "preemptions")
+    greedy = [c for c in calls if c["mode"] == "greedy"]
+    if on_card and (k1_launches != len(greedy) or k3_launches != len(k3_calls)
+                    or k1_launches <= 0):
+        raise AssertionError(
+            f"{name}: {k1_launches} K1 launches ({len(greedy)} recorded), "
+            f"{k3_launches} K3 ({len(k3_calls)} recorded)")
+    if threshold is not None and on_card and not k3_calls:
+        raise AssertionError(f"{name}: the high band never reached K3")
+    t_replay = time.perf_counter()
+    replay_solves(calls, dispatched)
+    for args, out in k3_calls:
+        want = pre_mod.preempt_batch_plain(*[a.cpu() for a in args])
+        if not all(torch.equal(o.cpu(), w) for o, w in zip(out, want)):
+            raise AssertionError(f"{name}: a K3 launch differs from its replay")
+    replay_s = time.perf_counter() - t_replay
+    measured_bound = [n for n in bound_names if n in create_times]
+    p50, p99 = latency_quantiles(watch.bind_times, create_times, measured_bound)
+    tt = sched.tenant_shares
+    rec = dict(
+        row=name, source=f"benchmarks/config/performance-config.yaml"
+        f"{row['source']}", nodes=row["nodes"], namespaces=n_ns,
+        pods=len(names), created=len(create_times), bound=len(bound_names),
+        seconds=elapsed, pods_per_sec=len(bound_names) / elapsed,
+        p50_arrival_to_bind_s=p50, p99_arrival_to_bind_s=p99,
+        jain_bind_index=jain, min_fair_fraction=fair_fraction,
+        max_dominant_share=tt.max_share(),
+        dominant_share_spread=tt.share_spread(),
+        quota=dict(denials=qc.admissions_denied, grants=qc.admissions_granted,
+                   refunds=qc.refunds, releases=qc.releases,
+                   parked=sched.queue.quota_parked_count(),
+                   overspend=bool(overspend)),
+        high_priority_unbound=high_unbound,
+        greedy_kernel_launches=k1_launches, preempt_kernel_launches=k3_launches,
+        batches=len(dispatched), solves_by_tier=tiers,
+        wave_solves_by_tier=wave_tiers, replay_equal=True,
+        replay_seconds=replay_s, setup_seconds=setup_s,
+        stage_seconds={k: v - stages0.get(k, 0.0)
+                       for k, v in sched.stage_seconds.items()},
+    )
+    emit("tenancy", **rec)
+    return rec
+
+
+def tenancy(gk, pk, device=None, rows=TENANCY_ROWS):
+    """The ``tenancy`` phase: every row on a fresh stack, in order."""
+    t0 = time.perf_counter()
+    recs = [tenancy_row(row, gk, pk, device) for row in rows]
+    totals = dict(
+        greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs),
+        preempt_kernel_launches=sum(r["preempt_kernel_launches"] for r in recs),
+    )
+    emit("tenancy_phase", rows=len(recs), seconds=time.perf_counter() - t0,
+         **totals)
+    return totals
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -3792,13 +4636,17 @@ def main():
     churn = churn_sinkhorn(gk, asg_mod, "ChurnSinkhorn/50000")
     churn_sinkhorn(gk, asg_mod, "RebalanceSinkhorn/500")
     life = lifecycle(gk, pk)
+    parts = partitions(gk)
+    ten = tenancy(gk, pk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
         source="kubernetes_tpu_torch/csrc/greedy_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_solver.py:123",
         launches=rec["greedy_kernel_launches"]
-        + life["greedy_kernel_launches"],
+        + life["greedy_kernel_launches"]
+        + sum(r["greedy_kernel_launches"] for r in parts)
+        + ten["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],
@@ -3835,7 +4683,8 @@ def main():
         source="kubernetes_tpu_torch/csrc/preempt_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_preempt.py:69",
         launches=pre["preempt_kernel_launches"]
-        + life["preempt_kernel_launches"],
+        + life["preempt_kernel_launches"]
+        + ten["preempt_kernel_launches"],
         max_abs_err=p_max_err,
         ms=p_timing["ms"],
         plain_ms=p_timing["plain_ms"],

@@ -20,9 +20,19 @@ Entry points solve on the card unless the caller names the CPU
 layout mirrors ``kubernetes_tpu`` module for module, the hollow-node
 plane (kubelet/, scheduler/bindack.py), the lifecycle plane
 (controllers/nodelifecycle.py with drain planning through K3,
-robustness/lifecycle.py) and streaming arrivals with the SLO-adaptive
-batcher (streaming/) included; not here yet: partitions, tenancy and
-the quota controller.
+robustness/lifecycle.py), streaming arrivals with the SLO-adaptive
+batcher (streaming/), multi-active partitioned scheduling
+(scheduler/partition.py: several ``SchedulerApp`` stacks over one
+apiserver, each owning a lease-backed slice of the nodes with its own
+carry on the card) and the multi-tenant fairness plane
+(scheduler/tenancy.py, controllers/quota.py: the quota gate and the
+DRF solve order) included.
+
+Tests run on the CPU against the JAX package (``python -m pytest
+tests/test_torch_*.py -q``, e.g. ``tests/test_torch_partition.py`` and
+``tests/test_torch_tenancy.py`` for the two planes); ``python3
+chip_smoke.py`` drives the port on one NVIDIA GPU, its ``partitions``
+and ``tenancy`` phases included.
 """
 
 __version__ = "0.1.0"

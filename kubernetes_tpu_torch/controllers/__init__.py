@@ -6,7 +6,13 @@ maintains PDB.Status.DisruptionsAllowed, the budget preemption spends
 (generic_scheduler.go:885-887); the node-lifecycle loop taints nodes
 whose heartbeat lapsed and evicts their pods; the drainer cordons and
 drains nodes, paced by the same budget, or drains by a plan of the
-victim search. The quota loop arrives with the tenancy slice.
+victim search; the quota controller charges, refunds and reconciles
+each namespace's ResourceQuota at the scheduling gate and wakes the
+pods it parked (armed by ``scheduler.tenancy.arm_tenancy`` or a
+``tenancy:`` config block).
+
+Tests on the CPU: ``python -m pytest tests/test_torch_tenancy.py -q``
+holds the quota ledger against the JAX package's.
 """
 
 from kubernetes_tpu_torch.controllers.disruption import DisruptionController
@@ -14,5 +20,11 @@ from kubernetes_tpu_torch.controllers.nodelifecycle import (
     NodeDrainer,
     NodeLifecycleController,
 )
+from kubernetes_tpu_torch.controllers.quota import QuotaController
 
-__all__ = ["DisruptionController", "NodeDrainer", "NodeLifecycleController"]
+__all__ = [
+    "DisruptionController",
+    "NodeDrainer",
+    "NodeLifecycleController",
+    "QuotaController",
+]

@@ -143,6 +143,14 @@ def _greedy_assign_impl(
     is ``prior[t] + the resource score`` (the kernel's scored entry)."""
     caps = allocatable[:, :2]  # (milliCPU, memKiB) capacities for scorers
     n = allocatable.shape[0]
+    if n == 0:
+        # no node (a partitioned stack holding none): every pod NO_NODE
+        # and the state unchanged, as the kernel answers
+        return (
+            torch.full((pod_requests.shape[0],), NO_NODE, dtype=torch.int32,
+                       device=allocatable.device),
+            requested, nzr,
+        )
     node_iota = torch.arange(n, dtype=torch.int32, device=allocatable.device)
     no_node = torch.tensor(
         NO_NODE, dtype=torch.int32, device=allocatable.device

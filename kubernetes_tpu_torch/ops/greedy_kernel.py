@@ -78,6 +78,8 @@ last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+#: the counts are bumped from every partitioned stack's dispatcher
+_count_lock = threading.Lock()
 _static_bytes = 0
 #: clusters the card holds at once, per planned shape
 _admitted: dict = {}
@@ -173,10 +175,11 @@ def greedy_solve_cuda(
     if err != 0:
         entry = "scored entry" if scored else "kernel"
         raise KernelError(f"greedy_solve {entry} launch failed: cudaError {err}")
-    if scored:
-        scored_launches += 1
-    else:
-        launches += 1
+    with _count_lock:
+        if scored:
+            scored_launches += 1
+        else:
+            launches += 1
     last_plan = plan
     return asg, req_out, nzr_out
 

@@ -113,6 +113,8 @@ last_plan: Optional[LaunchPlan] = None
 
 _lib = None
 _lib_lock = threading.Lock()
+#: the count is bumped from every partitioned stack's committer
+_count_lock = threading.Lock()
 _static_bytes = 0
 #: clusters the card holds at once, per planned shape
 _admitted: dict = {}
@@ -237,7 +239,8 @@ def preempt_solve_cuda(
         )
     if err != 0:
         raise KernelError(f"preempt_solve_kernel launch failed: cudaError {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     last_plan = plan
     return chosen, vwords, violwords, nviol, state_out
 

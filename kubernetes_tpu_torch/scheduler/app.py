@@ -135,10 +135,17 @@ class SchedulerApp:
         if getattr(self.config, "partition", None) is not None and (
             self.config.partition.enabled
         ):
-            raise ValueError(
-                "partitioned multi-active mode is not ported yet: it "
-                "arrives in a later slice of the port (ROADMAP Queue 1 "
-                "item 8)"
+            # multi-active partitioned mode: this stack runs ACTIVE
+            # immediately, scoped to the node-space partitions its
+            # coordinator holds (scheduler/partition.py); leader
+            # election is not used (validation rejects combining them)
+            from kubernetes_tpu_torch.scheduler.partition import (
+                attach_partitioning,
+            )
+
+            self.coordinator = attach_partitioning(
+                self.sched, self.client, self.config.partition,
+                self.identity,
             )
         # multi-tenant fairness plane (scheduler/tenancy.py): the
         # ResourceQuota admission gate + DRF dominant-share bias.
@@ -147,10 +154,11 @@ class SchedulerApp:
         self.quota_controller = None
         tn = getattr(self.config, "tenancy", None)
         if tn is not None and tn.enabled:
-            raise ValueError(
-                "the multi-tenant fairness plane is not ported yet: it "
-                "arrives in a later slice of the port (ROADMAP Queue 1 "
-                "item 8)"
+            from kubernetes_tpu_torch.scheduler.tenancy import arm_tenancy
+
+            self.quota_controller = arm_tenancy(
+                self.sched, self.client, self.informers,
+                quota=tn.quota_enforcement, drf_bias=tn.drf_bias,
             )
         self.reconciler: Optional[ControlPlaneReconciler] = None
         self.recovery_report = None

@@ -2074,6 +2074,19 @@ class BatchScheduler(Scheduler):
         # own pods, not max_batch padding steps
         padded = POD_BUCKET * math.ceil(b / POD_BUCKET)
         order = batch.order
+        # -- tenant fairness bias (scheduler/tenancy.py): within each
+        # priority level, re-merge the solve order so the tenant with
+        # the lowest virtual dominant share places next -- the solve
+        # order IS the arbitration point of the sequential-replay scan,
+        # so every mode (greedy, constrained, sinkhorn, mesh) honors the
+        # bias with no kernel change. Single-tenant batches exit after
+        # one namespace sweep.
+        tt = self.tenant_shares
+        if tt is not None and b > 1:
+            from kubernetes_tpu_torch.scheduler.tenancy import fair_order
+
+            tt.refresh_capacity(nt)
+            order = fair_order(order, pods, batch.priorities, tt)
         req = np.zeros((padded, nt.dims.num_dims), dtype=np.int32)
         nzr = np.zeros((padded, 2), dtype=np.int32)
         midx = np.zeros(padded, dtype=np.int32)

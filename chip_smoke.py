@@ -166,9 +166,13 @@ line is printed only when every phase passed):
    pods of 16 CPU, 120 cold nodes join at 60% bound),
    HeartbeatLapseStorm/1000 (a ``HollowNodeFleet`` acking binds; 25
    agents go dark at 60% bound, ``NodeLifecycleController`` taints them
-   and evicts, the evictees respawn) and PreemptionCascade/500 (5,000
+   and evicts, the evictees respawn), PreemptionCascade/500 (5,000
    residents fill the cluster, 500 priority-100 pods arrive in MMPP
-   bursts, K3 waves under a PDB of 600, victims respawn). The streaming
+   bursts, K3 waves under a PDB of 600, victims respawn) and
+   LifecycleChaos/500 (the lifecycle-chaos profile at seed 42 installed
+   for the row: ``ClusterLifecycleDriver`` flaps nodes and fires a
+   reclamation storm from 30% bound while DEVICE_SOLVE faults hit the
+   card's tier, which retries them in place). The streaming
    rows attach the SLO-adaptive controller through
    ``apply_streaming_config`` and feed the measured pods through
    ``ArrivalEngine``. Asserts per row: every solve on the "cuda" tier,
@@ -186,7 +190,10 @@ line is printed only when every phase passed):
    more than the residents) and at least one K3 plan launch per drained
    node; ReclaimStorm: one storm, the fleet whole again, membership row
    patches and one full repack; ColdScaleUp: pods on ``cold-*`` nodes;
-   PreemptionCascade: K3 waves. Prints pods/s, p50/p99 arrival-to-bind,
+   PreemptionCascade: K3 waves; LifecycleChaos: DEVICE_SOLVE's fires
+   equal the card tier's injected retries plus its injected exhaustions
+   (the retry and fallback counters move by exactly those), and the
+   flaps and storms reach the row's three events. Prints pods/s, p50/p99 arrival-to-bind,
    the stage seconds, K1 and K3 launches (plan and wave), the
    controller's trajectory, the lifecycle counters and one plan launch's
    time by CUDA events; then the phase's seconds. ``device="cpu"``
@@ -241,11 +248,41 @@ line is printed only when every phase passed):
    wave through ``preempt_batch_plain``. Prints pods/s, p50/p99
    arrival-to-bind, Jain, the fair fraction, the dominant-share spread,
    the quota ledger and K1/K3 launches.
-14. ``kernels``: every ported kernel with its launches on the main path,
+14. ``containment``: PoisonChaos/5000 (performance-config.yaml:652-657,
+   built as benchmarks/runner.py:1137-1165 builds it: 500 nodes of 32
+   CPU / 64Gi / 110 pods in 10 zones, max_batch 1,024, 5,000 pods of
+   250m/512Mi created one by one, three stamped with the poison
+   annotation at the offsets ``random.Random(14)`` picks, an injector
+   with no points), and the same row under the builtin poison-chaos
+   profile at seed 7 beside it (``PoisonChaos/5000+poison-chaos``: more
+   pods stamped at pop time, one carry-row corruption, one device loss;
+   a ControlPlaneReconciler audits the carry every 10 ms, and once more
+   at the instant the corruption lands; waves of 256 pods follow the
+   burst until both points have fired and the lost state was rebuilt).
+   Then injected exhaustion on the card: DEVICE_SOLVE fires on both
+   attempts of a 200-pod batch's first solve (bisected into K1
+   sub-solves) and of a lone pod's (requeued for K1), neither stopping
+   the scheduler. Asserts every
+   healthy pod bound, every stamped pod parked with the PodQuarantined
+   condition and never bound, every solve on the "cuda" tier with no
+   pod on the sequential path, K1's launches equal to the recorded
+   solves, each launch (bisection sub-solves included) equal to its CPU
+   replay, the row's placements equal to the numpy host greedy chained
+   over every solve, each bisection's sub-solves within 2 + 2k(ceil(log2
+   B) - 1) for a batch of B holding k poison pods, no node over
+   capacity; the variant: the audit healed the corruption, the device
+   loss was rebuilt (the rebuild milliseconds and the first K1 launch
+   on the rebuilt carry are printed). Then ``greedy_assign_spread`` at
+   5,000 nodes on the card, bit-equal to its CPU run. Prints pods/s,
+   p50/p99 create-to-bind, the containment labels (bisections,
+   isolations, holds, parks, parked, heals), K1 launches and the
+   bisections' sub-solves and milliseconds.
+15. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
-   adds its launches in ``lifecycle``, ``partitions`` and ``tenancy``,
+   adds its launches in ``lifecycle``, ``partitions``, ``tenancy`` and
+   ``containment``,
    K3 in ``lifecycle`` and ``tenancy``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -3050,6 +3087,18 @@ LIFECYCLE_ROWS = [
                                  max_unavailable=600),
                         respawn_prefix="init-", high_priority_threshold=100),
     ),
+    dict(
+        # the lifecycle-chaos profile (fault_seed 42) drives the flaps and
+        # the storm and injects DEVICE_SOLVE faults, which the card's
+        # tier retries in place
+        name="LifecycleChaos/500", source=":604-622", nodes=500,
+        measured=1000, pod=dict(cpu="250m", memory="512Mi"),
+        fault_profile="lifecycle-chaos", fault_seed=42,
+        streaming=dict(trace="bursty", rate=150, seed=19, sloP99="5s"),
+        lifecycle=dict(mode="chaos", at_fraction=0.3, tick_interval=0.2,
+                       flap_down_seconds=0.5, storm_fraction=0.1,
+                       storm_down_seconds=1.5, min_events=3, duration_s=30),
+    ),
 ]
 LIFECYCLE_WAIT_S = 180  # each wait of a row: measured binds, settle
 
@@ -3184,6 +3233,7 @@ def lifecycle_row(row, gk, pk, device=None):
     from kubernetes_tpu_torch.ops import preemption as pre_mod
     from kubernetes_tpu_torch.robustness.faults import (
         FaultInjector, FaultPoint, FaultProfile, PointConfig,
+        install_injector, load_profile,
     )
     from kubernetes_tpu_torch.robustness.lifecycle import (
         ClusterLifecycleDriver, PodRespawner,
@@ -3306,17 +3356,25 @@ def lifecycle_row(row, gk, pk, device=None):
             drainer = NodeDrainer(client, disruption=dc,
                                   should_abort=stop_evt.is_set)
         counters["baseline_pods"] = 0
-    elif mode == "reclaim_storm":
-        # a private injector (never installed): the storm count is fixed
-        # and no solver fault rides along
-        driver = ClusterLifecycleDriver(
-            client,
-            injector=FaultInjector(FaultProfile(
+    elif mode in ("reclaim_storm", "chaos"):
+        # reclaim_storm: a private injector (never installed), so the
+        # storm count is fixed and no solver fault rides along; chaos:
+        # the row's profile, installed for the whole run
+        # (benchmarks/runner.py:924-930, 389-411)
+        if mode == "chaos":
+            injector = FaultInjector(load_profile(
+                row["fault_profile"], seed=row["fault_seed"]))
+            install_injector(injector)
+        else:
+            injector = FaultInjector(FaultProfile(
                 name="bench-reclaim", seed=0,
                 points={FaultPoint.RECLAIM_STORM: PointConfig(
                     rate=1.0, max_fires=int(lc["storms"]))},
-            )),
-            tick_interval=0.2, flap_down_seconds=0.5,
+            ))
+        driver = ClusterLifecycleDriver(
+            client, injector=injector,
+            tick_interval=float(lc.get("tick_interval", 0.2)),
+            flap_down_seconds=float(lc.get("flap_down_seconds", 0.5)),
             storm_fraction=float(lc["storm_fraction"]),
             storm_down_seconds=float(lc["storm_down_seconds"]),
         )
@@ -3401,6 +3459,9 @@ def lifecycle_row(row, gk, pk, device=None):
     stages0 = dict(sched.stage_seconds)
     patches0 = sched.membership_row_patches
     uploads0 = sched.state_uploads
+    injected0 = (sched.injected_retries, sched.injected_exhaustions,
+                 driver.injector.fired_count(FaultPoint.DEVICE_SOLVE)
+                 if driver is not None else 0)
     gk.launches = 0  # the counts of THIS row's run of the path
     pk.launches = 0
     sched_thread = None
@@ -3510,6 +3571,19 @@ def lifecycle_row(row, gk, pk, device=None):
                 time.sleep(0.1)
             raise AssertionError("the storm did not land and heal in 30 s")
 
+        def chaos():
+            # the runner's scenario (:412-430): start the driver at the
+            # row's fraction, hold until its events landed and every
+            # reclaimed node is back (or the row's duration ran out)
+            wait_fraction(lc["at_fraction"])
+            driver.start()
+            deadline = time.time() + float(lc["duration_s"])
+            while time.time() < deadline and not stop_evt.is_set():
+                if (driver.flaps + driver.storms >= lc["min_events"]
+                        and driver.down_count() == 0):
+                    return
+                time.sleep(0.1)
+
         def scale_up():
             wait_fraction(lc["at_fraction"])
             for i in range(lc["add_nodes"]):
@@ -3528,7 +3602,7 @@ def lifecycle_row(row, gk, pk, device=None):
 
         scenario = {
             "drain_via_preemption": drains, "drain_wave": drains,
-            "reclaim_storm": storm, "scale_up": scale_up,
+            "reclaim_storm": storm, "scale_up": scale_up, "chaos": chaos,
         }.get(mode, go_dark if fleet_cfg else None)
         create_times = {}
         start = time.perf_counter()
@@ -3624,6 +3698,8 @@ def lifecycle_row(row, gk, pk, device=None):
         for comp in reversed(stoppers):
             comp.stop()
         sched.stop()
+        if mode == "chaos":
+            install_injector(None)
 
     doubles = double_binds(server, 1 if fleet_cfg else 0)
     floor = pdb_floor(server)
@@ -3640,6 +3716,28 @@ def lifecycle_row(row, gk, pk, device=None):
         host_preemptions=preemptor.host_preemptions,
     )
     moved = {k: moved[k] - counters0[k] for k in moved}
+    injected = None
+    if mode == "chaos":
+        # every DEVICE_SOLVE fire was retried in place on the card's tier
+        # or, the attempts spent, exhausted the ladder (one booked
+        # fallback each) and was solved again on the card
+        injected = dict(
+            device_solve_fires=driver.injector.fired_count(
+                FaultPoint.DEVICE_SOLVE) - injected0[2],
+            retries=sched.injected_retries - injected0[0],
+            exhaustions=sched.injected_exhaustions - injected0[1],
+        )
+        if (injected["device_solve_fires"]
+                != injected["retries"] + injected["exhaustions"]
+                or moved.pop("retries") != injected["retries"]
+                or moved.pop("fallbacks") != injected["exhaustions"]):
+            raise AssertionError(
+                f"{name}: injected faults {injected}, counters {moved}"
+            )
+        if driver.flaps + driver.storms < lc["min_events"]:
+            raise AssertionError(
+                f"{name}: {driver.flaps} flaps and {driver.storms} storms"
+            )
     controller = sched.autobatch
     full_repacks = sched.tensor_cache.full_repacks
     informers.stop()
@@ -3780,6 +3878,8 @@ def lifecycle_row(row, gk, pk, device=None):
         lifecycle=counters, replay_equal=True, replay_seconds=replay_s,
         fill_seconds=fill_s, setup_seconds=setup_s,
     )
+    if injected is not None:
+        rec["injected"] = injected
     if controller is not None:
         rec["controller"] = dict(
             steps=controller.steps, window_changes=controller.window_changes,
@@ -4582,6 +4682,538 @@ def tenancy(gk, pk, device=None, rows=TENANCY_ROWS):
     return totals
 
 
+# -- phase 14: the containment and fault plane ---------------------------------
+
+# benchmarks/config/performance-config.yaml:652-657 (PoisonChaos/5000) with
+# the defaults of :9-15 (32 CPU / 64Gi / 110-pod nodes in 10 zones,
+# max_batch 1,024), built as benchmarks/runner.py:1137-1165 builds it: three
+# measured pods stamped with the poison annotation at the offsets
+# random.Random(14) picks, an injector with no points installed. The
+# variant installs the builtin poison-chaos profile at seed 7 (the
+# runner's fault_profile, :924-930) beside it and replaces nothing.
+POISON_ROWS = [
+    dict(name="PoisonChaos/5000", source=":652-657", nodes=500,
+         measured=5000, pod=dict(cpu="250m", memory="512Mi"),
+         poison=dict(count=3, seed=14)),
+    dict(name="PoisonChaos/5000+poison-chaos", source=":652-657", nodes=500,
+         measured=5000, pod=dict(cpu="250m", memory="512Mi"),
+         poison=dict(count=3, seed=14), fault_profile="poison-chaos",
+         fault_seed=7),
+]
+CONTAINMENT_WAIT_S = 300
+# the variant: waves landed after the measured burst until each of the
+# profile's bounded points has fired (they draw per dispatch and per
+# commit, and a burst's dispatch count depends on its timing) and the
+# lost device state was rebuilt (by the next solve: a loss drawn at a
+# poison pod's own dispatch lands none)
+EXTRA_WAVE = 256
+MAX_EXTRA_WAVES = 20
+
+
+def bisect_bound(pods, isolated):
+    """The most sub-solves ``_bisect_batch`` can spend on a batch of
+    ``pods`` holding ``isolated`` poison pods: the two halves, then two
+    more for every failing group of more than one pod, of which there are
+    at most ``isolated`` on each of the ceil(log2 pods) - 1 inner levels
+    of the left-first search."""
+    depth = max(1, (max(pods, 2) - 1).bit_length())
+    return 2 + 2 * max(1, isolated) * (depth - 1)
+
+
+def containment_row(row, gk, device=None):
+    """PoisonChaos/5000 through the port's entry points on the card: the
+    burst created one pod at a time, the stamped pods bisected out of
+    their batches and quarantined while every healthy pod binds. Every K1
+    launch (bisection sub-solves included) is replayed on the CPU from its
+    pieces and handed carry; on the row as configured the placements must
+    also equal the numpy host greedy chained over every solve in order.
+    The ``fault_profile`` variant also corrupts a resident carry row (the
+    carry audit of a ControlPlaneReconciler must heal it) and loses the
+    device once (the resident state is rebuilt from the host cache)."""
+    import random
+
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.robustness.containment import (
+        QUARANTINE_CONDITION,
+    )
+    from kubernetes_tpu_torch.robustness.faults import (
+        POISON_ANNOTATION, FaultInjector, FaultPoint, FaultProfile,
+        install_injector, load_profile, pod_is_poisoned,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.resilience import (
+        ControlPlaneReconciler,
+    )
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    chaos = row.get("fault_profile")
+    n_nodes, n = row["nodes"], row["measured"]
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH, device=device)
+    if (sched.device.type == "cuda") != on_card:
+        raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    for i in range(n_nodes):
+        nm = f"node-{i}"
+        client.create_node(
+            make_node(nm).capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, nm).obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    pods = [lifecycle_pod(make_pod, f"measure-{i}", row["pod"])
+            for i in range(n)]
+    rng = random.Random(row["poison"]["seed"])
+    annotated = sorted(rng.sample(range(n), row["poison"]["count"]))
+    for i in annotated:
+        pods[i].metadata.annotations[POISON_ANNOTATION] = "true"
+    inj = FaultInjector(
+        load_profile(chaos, seed=row["fault_seed"]) if chaos
+        else FaultProfile("poison-workload", seed=0, points={})
+    )
+    install_injector(inj)
+    reconciler = None
+    if chaos:
+        # the carry audit as SchedulerApp's sweeper runs it, every 10 ms
+        reconciler = ControlPlaneReconciler(
+            sched, client, sweep_interval=0.01, drift_interval=3600.0,
+            carry_audit_interval=0.01,
+        )
+        reconciler.start()
+
+    # record every dispatch and K1 solve, every bisection (its batch, its
+    # sub-solves, the pods it isolated, its milliseconds) and the device
+    # loss (the K1 solves recorded before it)
+    dispatched, seen, calls = [], set(), []
+    bisections, losses = [], []
+    orig_dispatch, orig_solve = sched._dispatch_solve, batch_mod.solve_packed
+    orig_bisect, orig_lost = sched._bisect_batch, sched._on_device_lost
+    orig_corrupt = sched._corrupt_carry_row
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+
+    def recording_bisect(solver_infos, *args, **kwargs):
+        sub0 = counter_total(metrics.bisect_subsolves)
+        iso0 = sched.pods_quarantined
+        t0 = time.perf_counter()
+        try:
+            return orig_bisect(solver_infos, *args, **kwargs)
+        finally:
+            bisections.append(dict(
+                pods=len(solver_infos),
+                subsolves=int(counter_total(metrics.bisect_subsolves) - sub0),
+                isolated=sched.pods_quarantined - iso0,
+                ms=(time.perf_counter() - t0) * 1000.0,
+            ))
+
+    def recording_lost():
+        losses.append(dict(calls_before=len(calls),
+                           launches_before=gk.launches))
+        return orig_lost()
+
+    audits = []
+
+    def corrupt_then_audit():
+        # one audit the moment the corruption lands, on the committing
+        # thread: inside a bisection the next sub-solve may exhaust on a
+        # poison pod and drop the carry unread within milliseconds,
+        # sooner than any sweep
+        orig_corrupt()
+        audits.append(sched.audit_carry())
+
+    sched._dispatch_solve = recording_dispatch
+    sched._bisect_batch = recording_bisect
+    sched._on_device_lost = recording_lost
+    sched._corrupt_carry_row = corrupt_then_audit
+    batch_mod.solve_packed = recording_solve
+    # the post-warmup cluster state: no pod placed yet, so the tensor
+    # cache's own arrays (nothing is resident on the card before the
+    # first solve)
+    snapshot = sched.algorithm.snapshot
+    sched.cache.update_snapshot(snapshot)
+    nt = sched.tensor_cache.update(snapshot)
+    state0 = None if chaos else tuple(a.copy() for a in (
+        nt.allocatable, nt.valid, nt.requested, nt.non_zero_requested))
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    counters0 = dict(
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    uploads0 = sched.state_uploads
+    lost0 = counter_total(metrics.device_lost_events)
+    rebuild_n0 = metrics.device_rebuild_ms.count()
+    rebuild_s0 = metrics.device_rebuild_ms.sum()
+    gk.launches = 0  # the counts of THIS row's run of the path
+    watch = BindWatcher(server, [p.metadata.name for p in pods])
+    sched_thread = None
+    extra = []
+
+    def n_stamped():
+        return len(annotated) + inj.fired_count(FaultPoint.POISON_POD)
+
+    def wait_for(cond, what, timeout=CONTAINMENT_WAIT_S):
+        deadline = time.time() + timeout
+        while not cond():
+            if sched.card_fault is not None:
+                raise AssertionError(
+                    f"{name}: a batch failed on the card: {sched.card_fault!r}"
+                ) from sched.card_fault
+            if sched_thread is not None and not sched_thread.is_alive():
+                raise AssertionError(f"{name}: the scheduler thread died")
+            if time.time() > deadline:
+                raise AssertionError(f"{name}: timed out waiting for {what}")
+            time.sleep(0.05)
+
+    def measured_bound():
+        return sum(1 for nm in watch.bind_times if nm.startswith("measure-"))
+
+    try:
+        setup_s = time.perf_counter() - t_setup
+        sched_thread = sched.start()
+        create_times = {}
+        start = time.perf_counter()
+        for p in pods:
+            create_times[p.metadata.name] = time.perf_counter()
+            client.create_pod(p)
+        wait_for(lambda: measured_bound() >= n - n_stamped(),
+                 "the healthy pods to bind")
+        elapsed = max(watch.bind_times.values()) - start
+        wait_for(lambda: sched.queue.quarantine_parked_count() == n_stamped(),
+                 "every stamped pod to park")
+        if chaos:
+            corrupt, lost = FaultPoint.CARRY_CORRUPT, FaultPoint.DEVICE_LOST
+            for w in range(MAX_EXTRA_WAVES):
+                if (inj.fired_count(corrupt) and inj.fired_count(lost)
+                        and metrics.device_rebuild_ms.count() > rebuild_n0):
+                    break
+                wave = [lifecycle_pod(make_pod, f"extra-{w}-{i}", row["pod"])
+                        for i in range(EXTRA_WAVE)]
+                extra.extend(p.metadata.name for p in wave)
+                client.create_pods_bulk(wave)
+                wait_for(lambda: len(watch.bind_times)
+                         + sched.queue.quarantine_parked_count()
+                         >= n + len(extra), "an extra wave to bind")
+            wait_for(lambda: sched.carry_audit_heals >= 1
+                     or not inj.fired_count(corrupt),
+                     "the carry audit to heal the corruption", timeout=30)
+        sched.wait_for_inflight_binds(timeout=60)
+        # the dispatcher stops first: nothing launches after the counts
+        sched._stop.set()
+        sched_thread.join(timeout=60)
+        if sched_thread.is_alive():
+            raise AssertionError(f"{name}: the scheduler did not stop")
+        if sched.card_fault is not None:
+            raise AssertionError(
+                f"{name}: a batch failed on the card: {sched.card_fault!r}"
+            ) from sched.card_fault
+        k1_launches = gk.launches
+    finally:
+        watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        sched._bisect_batch = orig_bisect
+        sched._on_device_lost = orig_lost
+        sched._corrupt_carry_row = orig_corrupt
+        batch_mod.solve_packed = orig_solve
+        if reconciler is not None:
+            reconciler.stop()
+        sched.stop()
+
+    live = {p.metadata.name: p for p in client.list_pods()[0]}
+    stamped = {nm for nm, p in live.items() if pod_is_poisoned(p)}
+    fired = {pt: inj.fired_count(pt) for pt in FaultPoint.ALL
+             if inj.fired_count(pt)}
+    install_injector(None)
+    informers.stop()
+    tiers = {k: v - tiers0.get(k, 0)
+             for k, v in sched.ladder.solves_by_tier.items()}
+    moved = dict(
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: int(moved[k] - counters0[k]) for k in moved}
+    qm = sched.quarantine
+
+    healthy = [nm for nm in live if nm not in stamped]
+    if len(stamped) != n_stamped() or not {
+            f"measure-{i}" for i in annotated} <= stamped:
+        raise AssertionError(f"{name}: stamped pods {sorted(stamped)}")
+    unbound = [nm for nm in healthy if not live[nm].spec.node_name]
+    if unbound:
+        raise AssertionError(f"{name}: {len(unbound)} healthy pods unbound")
+    parked = {pi.pod.metadata.name for pi in sched.queue.quarantined_pods()}
+    if parked != stamped:
+        raise AssertionError(f"{name}: parked {sorted(parked)} != stamped")
+    for nm in stamped:
+        if nm in watch.bind_times or live[nm].spec.node_name:
+            raise AssertionError(f"{name}: the stamped pod {nm} bound")
+        if not any(c.type == QUARANTINE_CONDITION and c.status == "True"
+                   for c in live[nm].status.conditions):
+            raise AssertionError(f"{name}: {nm} has no {QUARANTINE_CONDITION}")
+    if set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{name}: solves off the {tier} tier: {tiers}")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{name}: a dispatch solved off the {tier} tier")
+    if any(moved.values()):
+        raise AssertionError(f"{name}: a fallback counter moved: {moved}")
+    over = over_capacity(client)
+    if over:
+        raise AssertionError(f"{name}: nodes over capacity: {over[:5]}")
+    greedy = [c for c in calls if c["mode"] == "greedy"]
+    if on_card and k1_launches != len(greedy):
+        raise AssertionError(
+            f"{name}: {k1_launches} K1 launches, {len(greedy)} recorded"
+        )
+    if not bisections or sched.bisections != len(bisections):
+        raise AssertionError(f"{name}: {sched.bisections} bisections")
+    for b in bisections:
+        if b["subsolves"] > bisect_bound(b["pods"], b["isolated"]):
+            raise AssertionError(f"{name}: bisection past its bound: {b}")
+    t_replay = time.perf_counter()
+    replay_solves(calls, dispatched)
+    if state0 is not None:
+        want = host_replay(dispatched, state0, sched.solver_config)
+        differ = [nm for nm in healthy if want.get(nm) != live[nm].spec.node_name]
+        if differ:
+            raise AssertionError(
+                f"{name}: {len(differ)} placements differ from the host "
+                f"replay, e.g. {differ[:3]}"
+            )
+    replay_s = time.perf_counter() - t_replay
+
+    rec_chaos = None
+    if chaos:
+        lost_events = int(counter_total(metrics.device_lost_events) - lost0)
+        rebuilds = metrics.device_rebuild_ms.count() - rebuild_n0
+        if not fired.get(FaultPoint.CARRY_CORRUPT) or sched.carry_audit_heals < 1:
+            raise AssertionError(
+                f"{name}: corruption fired {fired}, "
+                f"{sched.carry_audit_heals} audit heals"
+            )
+        if not fired.get(FaultPoint.DEVICE_LOST) or lost_events < 1 or (
+                rebuilds < 1 or not losses):
+            raise AssertionError(
+                f"{name}: device loss fired {fired}, {lost_events} events, "
+                f"{rebuilds} rebuilds"
+            )
+        after = [c for c in calls[losses[0]["calls_before"]:]
+                 if c["mode"] == "greedy"]
+        if not after or after[0]["state"][2] is not None:
+            raise AssertionError(
+                f"{name}: no K1 launch on a rebuilt carry after the loss"
+            )
+        rec_chaos = dict(
+            fired=fired, carry_audit_heals=sched.carry_audit_heals,
+            carry_audits=reconciler.carry_audits, audit_at_corruption=audits,
+            device_lost_events=lost_events, rebuilds=rebuilds,
+            rebuild_ms=metrics.device_rebuild_ms.sum() - rebuild_s0,
+            first_k1_after_loss=dict(
+                launch=losses[0]["launches_before"] + 1,
+                cold_upload=True,
+                rows=int(after[0]["out"][1].shape[0]),
+            ),
+            extra_waves=len(extra) // EXTRA_WAVE, extra_pods=len(extra),
+        )
+    names = [f"measure-{i}" for i in range(n)
+             if f"measure-{i}" not in stamped]
+    p50, p99 = latency_quantiles(watch.bind_times, create_times, names)
+    rec = dict(
+        row=name, source=f"benchmarks/config/performance-config.yaml"
+        f"{row['source']}", nodes=n_nodes, pods=n, stamped=sorted(stamped),
+        healthy_bound=len(healthy) - len(unbound), seconds=elapsed,
+        pods_per_sec=len(names) / elapsed, p50_create_to_bind_s=p50,
+        p99_create_to_bind_s=p99,
+        containment=dict(
+            poison_pods=len(stamped), bisections=sched.bisections,
+            isolations=qm.isolations, holds=qm.holds, parks=qm.parks,
+            quarantine_parked=sched.queue.quarantine_parked_count(),
+            carry_audit_heals=sched.carry_audit_heals,
+        ),
+        bisection=dict(
+            runs=bisections,
+            subsolves=sum(b["subsolves"] for b in bisections),
+            subsolves_per_poison_pod=sum(b["subsolves"] for b in bisections)
+            / max(1, len(stamped)),
+            bound=[bisect_bound(b["pods"], b["isolated"]) for b in bisections],
+            ms=sum(b["ms"] for b in bisections),
+        ),
+        greedy_kernel_launches=k1_launches, batches=len(dispatched),
+        solves_by_tier=tiers, counters_moved=moved,
+        state_uploads=sched.state_uploads - uploads0,
+        replay_equal=True, host_replay=state0 is not None,
+        replay_seconds=replay_s, setup_seconds=setup_s,
+    )
+    if rec_chaos is not None:
+        rec["chaos"] = rec_chaos
+    emit("containment", **rec)
+    return rec
+
+
+def injected_exhaustion(gk, device=None):
+    """The card tier's answer to injected solver faults that outlast the
+    in-place retry: DEVICE_SOLVE fires on both attempts of the first
+    solve (rate 1, two fires), so the ladder exhausts with the injected
+    fault as its cause. A 200-pod batch is then bisected into K1
+    sub-solves; a lone pod, which the CPU would hand to the sequential
+    oracle, is requeued and solved by K1 at its next pop. Neither may
+    stop the scheduler, and nothing may leave the ``cuda`` tier."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+        install_injector,
+    )
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    out = {}
+    for case, n_pods in (("batch", 200), ("singleton", 1)):
+        server = APIServer()
+        client = Client(server)
+        informers = InformerFactory(server)
+        sched = new_scheduler(client, informers, batch=True,
+                              max_batch=MAX_CONSTRAINED_BATCH, device=device)
+        for i in range(100):
+            client.create_node(make_node(f"node-{i}").capacity(
+                cpu="32", memory="64Gi", pods=110).obj())
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        sched.warmup()
+        inj = FaultInjector(FaultProfile("exhaust", seed=0, points={
+            FaultPoint.DEVICE_SOLVE: PointConfig(rate=1.0, max_fires=2)}))
+        install_injector(inj)
+        names = [f"{case}-{i}" for i in range(n_pods)]
+        client.create_pods_bulk([
+            make_pod(nm).container(cpu="250m", memory="512Mi").obj()
+            for nm in names])
+        gk.launches = 0
+        t0 = time.perf_counter()
+        try:
+            sched.start()
+            deadline = time.time() + 60
+            while time.time() < deadline and sched.card_fault is None:
+                bound = {p.metadata.name for p in client.list_pods()[0]
+                         if p.spec.node_name}
+                if set(names) <= bound:
+                    break
+                time.sleep(0.05)
+            sched.wait_for_inflight_binds(timeout=30)
+            seconds = time.perf_counter() - t0
+        finally:
+            install_injector(None)
+            sched.stop()
+            informers.stop()
+        if sched.card_fault is not None:
+            raise AssertionError(
+                f"injected exhaustion ({case}) stopped the scheduler: "
+                f"{sched.card_fault!r}") from sched.card_fault
+        unbound = set(names) - {p.metadata.name for p in client.list_pods()[0]
+                                if p.spec.node_name}
+        tiers = {k: v for k, v in sched.ladder.solves_by_tier.items() if v}
+        rec = dict(
+            pods=n_pods, seconds=seconds, fires=inj.fired_count(
+                FaultPoint.DEVICE_SOLVE),
+            injected_retries=sched.injected_retries,
+            injected_exhaustions=sched.injected_exhaustions,
+            bisections=sched.bisections, solves_by_tier=tiers,
+            greedy_kernel_launches=gk.launches,
+            pods_fallback=sched.pods_fallback,
+        )
+        # the CPU rehearsal steps down to host greedy instead
+        allowed = {tier} if on_card else {tier, "host_greedy"}
+        if unbound or set(tiers) - allowed or sched.pods_fallback:
+            raise AssertionError(f"injected exhaustion ({case}): {rec}, "
+                                 f"{len(unbound)} unbound")
+        if on_card and (rec["fires"] != 2 or rec["injected_retries"] != 1
+                        or rec["injected_exhaustions"] != 1
+                        or gk.launches != tiers.get(tier, 0)
+                        or (case == "batch") != (sched.bisections == 1)):
+            raise AssertionError(f"injected exhaustion ({case}): {rec}")
+        out[case] = rec
+    emit("injected_exhaustion", **out)
+    return out
+
+
+def spread_on_card(device=None):
+    """``greedy_assign_spread`` (a plain torch loop over the batch; the
+    reference's XLA scan, not a Pallas kernel) once on the card at 5,000
+    nodes, against its own run on the CPU on the same seed: every output
+    bit-equal."""
+    from kubernetes_tpu_torch.ops.assignment import greedy_assign_spread
+
+    rng = np.random.default_rng(23)
+    n, b, g, v, c = N_NODES, 256, 4, 10, 2
+    alloc = np.tile(np.array([32000, 64 << 20, 0, 110], np.int32), (n, 1))
+    req = np.zeros_like(alloc)
+    req[:, 0] = rng.integers(0, 16000, n)
+    req[:, 3] = rng.integers(0, 50, n)
+    nzr = np.stack([np.maximum(req[:, 0], 100),
+                    np.full(n, 200 << 10)], 1).astype(np.int32)
+    pod_req = np.tile(np.array([250, 512 << 10, 0, 1], np.int32), (b, 1))
+    pod_nzr = pod_req[:, :2].copy()
+    node_value = np.tile(np.arange(n, dtype=np.int32) % v, (g, 1))
+    node_value[1, : n // 5] = -1
+    args = [
+        alloc, req, nzr, rng.random(n) > 0.02, pod_req, pod_nzr,
+        rng.random((b, n)) > 0.1, np.arange(b) % 17 != 0,
+        rng.integers(0, 4, (g, v)).astype(np.int32), rng.random((g, v)) > 0.1,
+        node_value, rng.integers(-1, g, (b, c)).astype(np.int32),
+        np.ones((b, c), np.int32), np.ones((b, c), np.int32),
+        (rng.random((b, g)) > 0.3).astype(np.int32),
+    ]
+    dev = torch.device("cuda" if device is None else device)
+    t0 = time.perf_counter()
+    got = greedy_assign_spread(*[torch.from_numpy(np.array(a)).to(dev)
+                                 for a in args])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = greedy_assign_spread(*[torch.from_numpy(np.array(a)) for a in args])
+    cpu_s = time.perf_counter() - t0
+    for what, x, y in zip(("assignment", "requested'", "nzr'", "counts'"),
+                          got, want):
+        if x.dtype != torch.int32 or not torch.equal(x.cpu(), y):
+            raise AssertionError(f"greedy_assign_spread {what} differs")
+    emit("spread", nodes=n, pods=b, groups=g, values=v, slots=c,
+         placed=int((want[0] >= 0).sum()), bit_equal=True,
+         device_seconds=card_s, cpu_seconds=cpu_s, device=str(dev))
+
+
+def containment(gk, device=None, rows=POISON_ROWS):
+    """The ``containment`` phase: each row on a fresh stack, then
+    ``greedy_assign_spread`` on the card."""
+    t0 = time.perf_counter()
+    recs = [containment_row(row, gk, device) for row in rows]
+    exhaust = injected_exhaustion(gk, device)
+    spread_on_card(device)
+    totals = dict(
+        greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs)
+        + sum(r["greedy_kernel_launches"] for r in exhaust.values())
+    )
+    emit("containment_phase", rows=len(recs),
+         seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -4638,6 +5270,7 @@ def main():
     life = lifecycle(gk, pk)
     parts = partitions(gk)
     ten = tenancy(gk, pk)
+    cont = containment(gk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -4646,7 +5279,8 @@ def main():
         launches=rec["greedy_kernel_launches"]
         + life["greedy_kernel_launches"]
         + sum(r["greedy_kernel_launches"] for r in parts)
-        + ten["greedy_kernel_launches"],
+        + ten["greedy_kernel_launches"]
+        + cont["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],

@@ -245,6 +245,88 @@ def _greedy_assign_scored_impl(
 
 greedy_assign_scored = _greedy_assign_scored_impl
 
+#: the skew rule's "no eligible value" minimum (the reference's ``big``)
+_SPREAD_BIG = 1 << 20
+
+
+def greedy_assign_spread(
+    allocatable: torch.Tensor,  # [N, R] int32
+    requested: torch.Tensor,  # [N, R] int32
+    nzr: torch.Tensor,  # [N, 2] int32
+    valid: torch.Tensor,  # [N] bool
+    pod_requests: torch.Tensor,  # [B, R] int32, solve order
+    pod_nzr: torch.Tensor,  # [B, 2] int32
+    static_mask: torch.Tensor,  # [B, N] bool
+    active: torch.Tensor,  # [B] bool
+    group_counts: torch.Tensor,  # [G, V] int32 initial spread counts
+    value_valid: torch.Tensor,  # [G, V] bool
+    node_value: torch.Tensor,  # [G, N] int32 (-1 = ineligible)
+    pod_groups: torch.Tensor,  # [B, C] int32 (-1 pad)
+    pod_max_skew: torch.Tensor,  # [B, C] int32
+    pod_self: torch.Tensor,  # [B, C] int32
+    pod_match: torch.Tensor,  # [B, G] int32
+    config: GreedyConfig = GreedyConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """greedy_assign plus hard topology-spread filtering with the
+    within-batch count replay (ops/topology.py), one pod step at a time.
+    A node passes constraint slot c of group g when its value v is
+    eligible (>= 0) and ``counts[g, v] + self - min_v <= max_skew``,
+    ``min_v`` the least count over the group's valid values (2^20 when
+    none is valid); a slot of -1 passes every node. A placed pod bumps
+    every group it matches at the chosen node's value. Int32 throughout,
+    the lowest index wins ties, and the inputs are never written.
+    Returns (assignment, requested', nzr', group_counts')."""
+    caps = allocatable[:, :2]
+    n = allocatable.shape[0]
+    dev = allocatable.device
+    g_count, v_count = group_counts.shape
+    node_iota = torch.arange(n, dtype=torch.int32, device=dev)
+    group_iota = torch.arange(g_count, device=dev)
+    no_node = torch.tensor(NO_NODE, dtype=torch.int32, device=dev)
+    big = torch.tensor(_SPREAD_BIG, dtype=torch.int32, device=dev)
+    req_state, nzr_state, counts = requested, nzr, group_counts
+    assignments = []
+    for t in range(pod_requests.shape[0]):
+        pod_req = pod_requests[t]
+        p_nzr = pod_nzr[t]
+        feasible = (
+            _fits(allocatable - req_state, pod_req) & static_mask[t] & valid
+        )
+        groups = pod_groups[t]  # [C]
+        safe = groups.clamp(min=0).long()
+        counts_g = counts[safe]  # [C, V]
+        min_v = torch.where(value_valid[safe], counts_g, big).amin(dim=1)
+        vals = node_value[safe]  # [C, N]
+        node_count = torch.gather(counts_g, 1, vals.clamp(0, v_count - 1).long())
+        ok = (vals >= 0) & (
+            node_count + pod_self[t][:, None] - min_v[:, None]
+            <= pod_max_skew[t][:, None]
+        )
+        ok = ok | (groups < 0)[:, None]
+        feasible = feasible & ok.all(dim=0)
+        score = _combined_score(caps, nzr_state, p_nzr, config)
+        score = torch.where(feasible, score, -torch.inf)
+        choice = torch.argmax(score).to(torch.int32)  # first max wins
+        placed = feasible.any() & active[t]
+        assignments.append(torch.where(placed, choice, no_node))
+
+        chosen = ((node_iota == choice) & placed).to(torch.int32)
+        req_state = req_state + chosen[:, None] * pod_req[None, :]
+        nzr_state = nzr_state + chosen[:, None] * p_nzr[None, :]
+        vals_at_choice = node_value[:, choice.long()]  # [G]
+        bump = (
+            placed & (vals_at_choice >= 0) & (pod_match[t] > 0)
+        ).to(torch.int32)
+        counts = counts.index_put(
+            (group_iota, vals_at_choice.clamp(0, v_count - 1).long()),
+            bump, accumulate=True,
+        )
+    if assignments:
+        out = torch.stack(assignments)
+    else:
+        out = torch.zeros(0, dtype=torch.int32, device=dev)
+    return out, req_state, nzr_state, counts
+
 
 def _fits_batch(free: torch.Tensor, pod_requests: torch.Tensor) -> torch.Tensor:
     """``_fits`` for every pod of a batch at once: [N, R] free x [B, R]

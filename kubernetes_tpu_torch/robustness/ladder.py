@@ -5,10 +5,18 @@ Tier semantics:
 
 - ``cuda``: the hand-written CUDA kernel (ops/greedy_kernel.py), the
   ONLY tier offered while the solver's tensors are on the card. It has
-  no breaker and no retries, and whatever it raises propagates -- a
-  failed upload, launch or download never moves a batch to a CPU
-  solver. The one exception is a PoisonError: that is the batch's
-  fault, not the card's, and the containment bisection owns it.
+  no breaker, and a failed upload, launch or download never moves a
+  batch to a CPU solver: a KernelError, a CUDA runtime error, a
+  SolveTimeout and every other exception propagate at once, with no
+  retry. Two faults are the batch's, not the card's, and end in
+  LadderExhausted instead: a PoisonError (at once; the containment
+  bisection owns it), and a FaultInjected, the simulated transient
+  fault of a chaos profile, which real hardware never raises. That one
+  is retried in place under RetryPolicy (counted in
+  ``solve_retries{tier="cuda"}`` and ``injected_retries``); once the
+  attempts are spent the ladder raises LadderExhausted with the
+  FaultInjected as its cause, and the batch scheduler solves the batch
+  again on the card (drain and redispatch, or containment).
 - ``torch``: the kernel's plain PyTorch version -- the device tier ONLY
   when the solver's tensors are on the CPU (tests). It is never a tier
   on the card: there the plain version serves nothing.
@@ -39,7 +47,7 @@ from kubernetes_tpu_torch.robustness.circuit import (
     Watchdog,
 )
 from kubernetes_tpu_torch.ops.greedy_kernel import KernelError
-from kubernetes_tpu_torch.robustness.faults import PoisonError
+from kubernetes_tpu_torch.robustness.faults import FaultInjected, PoisonError
 from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 T = TypeVar("T")
@@ -53,7 +61,7 @@ TIER_SEQUENTIAL = "sequential"
 #: device tiers, by where its tensors live)
 TIERS = (TIER_CUDA, TIER_TORCH, TIER_HOST_GREEDY, TIER_SEQUENTIAL)
 #: the solver's tensors live on the card: every failure but a poison pod
-#: is terminal, so nothing steps down to a CPU solver
+#: or an injected fault is terminal, so nothing steps down to a CPU solver
 CARD_TIERS = (TIER_CUDA,)
 #: the tiers that touch the device (watchdog-guarded)
 DEVICE_TIERS = (TIER_CUDA, TIER_TORCH)
@@ -131,6 +139,8 @@ class SolverLadder:
         # visibility counters (mirrored to metrics; kept as attributes so
         # tests and the perf matrix can read them without scraping)
         self.solves_by_tier: Dict[str, int] = {t: 0 for t in TIERS}
+        #: in-place retries of a FaultInjected, on any tier
+        self.injected_retries = 0
 
     def breaker(self, tier: str) -> CircuitBreaker:
         return self.breakers[tier]
@@ -163,7 +173,8 @@ class SolverLadder:
                 result = self._attempt_tier(tier, thunk)
             except Exception as e:  # noqa: BLE001 - filtered below
                 if isinstance(e, KernelError) or (
-                    tier in CARD_TIERS and not isinstance(e, PoisonError)
+                    tier in CARD_TIERS
+                    and not isinstance(e, (PoisonError, FaultInjected))
                 ):
                     raise  # a card or kernel fault never degrades
                     # silently to another tier
@@ -233,10 +244,14 @@ class SolverLadder:
             except (PoisonError, KernelError):
                 raise  # persistent (a poison pod, a kernel that cannot
                 # build or launch): in-place retries only burn backoff
-            except Exception:
-                if attempt >= max_attempts or tier in CARD_TIERS:
+            except Exception as e:
+                if attempt >= max_attempts or (
+                    tier in CARD_TIERS and not isinstance(e, FaultInjected)
+                ):
                     raise
                 metrics.solve_retries.inc(tier=tier)
+                if isinstance(e, FaultInjected):
+                    self.injected_retries += 1
                 cfg.sleep(cfg.retry.backoff_for_attempt(attempt))
 
 

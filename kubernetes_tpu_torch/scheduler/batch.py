@@ -94,12 +94,14 @@ from kubernetes_tpu_torch.ops.topology import (
     pack_spread_batch,
     pad_spread_tensors,
 )
+from kubernetes_tpu_torch.queue import events as queue_events
 from kubernetes_tpu_torch.robustness.circuit import SolveTimeout
 from kubernetes_tpu_torch.robustness.containment import (
     ContainmentConfig,
     QuarantineManager,
 )
 from kubernetes_tpu_torch.robustness.faults import (
+    FaultInjected,
     FaultPoint,
     PoisonError,
     SchedulerCrashed,
@@ -201,6 +203,29 @@ def _mirror_scatter(assignments, b, req, nzr, req_shadow, nzr_shadow):
     return _mirror_scatter_py(
         assignments, b, req, nzr, req_shadow, nzr_shadow
     )
+
+
+class DeviceLostInFlight(RuntimeError):
+    """A batch was in flight when an injected device loss dropped every
+    resident buffer: its result is void and its pods requeue. A
+    simulated fault, so it never stops the scheduler on the card."""
+
+
+def _bump_carry_row(carry, row: int):
+    """An injected corruption of one carry row: column 0 of ``row``
+    bumped, on a copy (the resident tensor may still feed a queued
+    solve); of a sharded carry only the shard holding the row is
+    copied."""
+    bump = 1 << 20 if carry.dtype == torch.int32 else 1 << 12
+    if isinstance(carry, ShardedRows):
+        k, local = carry.locate(row)
+        shards = list(carry.shards)
+        shards[k] = shards[k].clone()
+        shards[k][local, 0] += bump
+        return ShardedRows(carry.mesh, shards)
+    corrupted = carry.clone()
+    corrupted[row, 0] += bump
+    return corrupted
 
 
 def _to_host(arr) -> np.ndarray:
@@ -494,6 +519,10 @@ class _DeviceNodeState:
         self.valid_shadow: Optional[np.ndarray] = None
         self.req_shadow: Optional[np.ndarray] = None
         self.nzr_shadow: Optional[np.ndarray] = None
+        # the last injected carry corruption: the resident req carry it
+        # replaced, and the row it bumped (see _corrupt_carry_row)
+        self.corrupted_from = None
+        self.corrupt_row = 0
         # per-batch expected row deltas the host pack may not have shown
         # yet: (node_rows [K], req_rows [K, R], nzr_rows [K, 2]), newest
         # last (replaces the retired full-array shadow_gens ring)
@@ -679,6 +708,10 @@ class BatchScheduler(Scheduler):
         )
         self.bisections = 0
         self.pods_quarantined = 0
+        # ladder exhaustions whose cause is an injected solver fault
+        # (FaultInjected): with ``injected_retries`` they account for
+        # every DEVICE_SOLVE fire
+        self.injected_exhaustions = 0
         # ladder_exhausted crash-loop detector: the uid signature of the
         # last exhausted batch and how many consecutive times it
         # exhausted (>= 2 books exhausted_crashloop and forces the
@@ -860,7 +893,7 @@ class BatchScheduler(Scheduler):
         except SchedulerCrashed:
             self._simulate_crash()  # no recovery: the process "died"
         except Exception as e:
-            if self.device.type == "cuda":
+            if self._halts_on_card(e):
                 self._halt_on_card_fault(e)
                 raise
             # a failed download/commit must not crash the dispatch loop:
@@ -1356,7 +1389,7 @@ class BatchScheduler(Scheduler):
             except SchedulerCrashed:
                 self._simulate_crash()  # no recovery: the process "died"
             except Exception as e:
-                if self.device.type == "cuda":
+                if self._halts_on_card(e):
                     self._halt_on_card_fault(e)
                     raise
                 logger.exception("batch commit crashed")
@@ -1369,6 +1402,14 @@ class BatchScheduler(Scheduler):
                         # release _drain_pending's waiters
                         self._pending_q.clear()
                     self._pending_cv.notify_all()
+
+    def _halts_on_card(self, err: BaseException) -> bool:
+        """Whether a failed batch completion stops the scheduler: on the
+        card it does, unless an injected device loss voided the batch
+        (its pods requeue, as on the CPU)."""
+        return self.device.type == "cuda" and not isinstance(
+            err, DeviceLostInFlight
+        )
 
     def _halt_on_card_fault(self, err: BaseException) -> None:
         """A batch completion failed on the card: keep the error for the
@@ -1391,19 +1432,39 @@ class BatchScheduler(Scheduler):
                 self._flush_deferred_preemptions()
         except Exception:
             logger.exception("flushing deferred preemptions on recovery")
-        prof = self.profiles.get(
-            p["solver_infos"][0].pod.spec.scheduler_name
+        self._requeue_unplaced(
+            p["solver_infos"], p["cycle"], "batch commit failed"
         )
-        for pi in p["solver_infos"]:
+
+    def _requeue_unplaced(
+        self, solver_infos: List[PodInfo], pod_scheduling_cycle: int,
+        message: str,
+    ) -> None:
+        """Every pod of the batch not already assumed goes back through
+        the failure path (requeue with backoff + condition)."""
+        prof = self.profiles.get(solver_infos[0].pod.spec.scheduler_name)
+        for pi in solver_infos:
             try:
                 if prof is None or self.cache.is_assumed_pod(pi.pod):
                     continue
                 self.record_scheduling_failure(
-                    prof, pi, "batch commit failed", "SchedulerError", "",
-                    p["cycle"],
+                    prof, pi, message, "SchedulerError", "",
+                    pod_scheduling_cycle,
                 )
             except Exception:
                 logger.exception("recovering pod %s", pi.pod.key())
+
+    def _requeue_for_card(
+        self, solver_infos: List[PodInfo], pod_scheduling_cycle: int,
+        message: str,
+    ) -> None:
+        """The card's floor for a batch the ladder gave up on: its pods
+        requeue on the backoff clock (the fault was the solve's, not an
+        unschedulable verdict) and K1 solves them at their next pop."""
+        self._requeue_unplaced(solver_infos, pod_scheduling_cycle, message)
+        self.queue.move_pods_to_active_or_backoff_queue(
+            list(solver_infos), queue_events.ScheduleAttemptFailure
+        )
 
     def _solve_pipelined(
         self, solver_infos: List[PodInfo], pod_scheduling_cycle: int
@@ -1446,7 +1507,7 @@ class BatchScheduler(Scheduler):
                 try:
                     self._complete_solve(pend)
                 except Exception as e:
-                    if self.device.type == "cuda":
+                    if self._halts_on_card(e):
                         self._halt_on_card_fault(e)
                         raise
                     logger.exception("drain commit failed")
@@ -2343,6 +2404,10 @@ class BatchScheduler(Scheduler):
                 noop_score_tensors(padded, nt.capacity),
             )
         solve_mode = "constrained" if constrained else self.solver_mode
+        # the resident carry this solve consumes (read once: an injected
+        # corruption landing mid-dispatch is carried into its output)
+        req_in = ds.req_dev if carry_ok else None
+        nzr_in = ds.nzr_dev if carry_ok else None
 
         def run_device():
             if poison_key is not None:
@@ -2359,8 +2424,8 @@ class BatchScheduler(Scheduler):
                 pieces,
                 ds.alloc_dev if static_ok else None,
                 ds.valid_dev if static_ok else None,
-                ds.req_dev if carry_ok else None,
-                ds.nzr_dev if carry_ok else None,
+                req_in,
+                nzr_in,
                 config=self.solver_config,
                 mode=solve_mode,
                 compress=compress,
@@ -2402,7 +2467,7 @@ class BatchScheduler(Scheduler):
         # a re-upload (only exact when no row fixes rode this dispatch;
         # the solve never writes its inputs, so the refs stay intact)
         carry_in = (
-            (ds.req_dev, ds.nzr_dev)
+            (req_in, nzr_in)
             if carry_ok and not neg["didx"].size
             else None
         )
@@ -2425,6 +2490,8 @@ class BatchScheduler(Scheduler):
                 )
             self._jit_watch.refresh()
         except LadderExhausted as exhaust_err:
+            if isinstance(exhaust_err.__cause__, FaultInjected):
+                self.injected_exhaustions += 1
             with self._shadow_lock:
                 ds.invalidate_carry()
                 # no device solve LANDED, so the booked upload / scatter
@@ -2542,7 +2609,14 @@ class BatchScheduler(Scheduler):
             if overlaid:
                 ds.invalidate_carry()
             else:
-                ds.req_dev, ds.nzr_dev = req_out, nzr_out
+                with self._shadow_lock:
+                    if req_in is not None and ds.corrupted_from is req_in:
+                        # CARRY_CORRUPT hit the carry this solve had
+                        # already read: the corruption stays resident
+                        # instead of vanishing under the solve's output
+                        req_out = _bump_carry_row(req_out, ds.corrupt_row)
+                        ds.corrupted_from = None
+                    ds.req_dev, ds.nzr_dev = req_out, nzr_out
         span.note(tier=tier)
         return {
             "tier": tier,
@@ -2570,6 +2644,12 @@ class BatchScheduler(Scheduler):
         }
 
     # -- blast-radius containment (robustness/containment.py) ----------------
+
+    @property
+    def injected_retries(self) -> int:
+        """In-place retries of an injected solver fault (the ladder's
+        count); with ``injected_exhaustions``, every DEVICE_SOLVE fire."""
+        return self.ladder.injected_retries
 
     def _note_exhaust_sig(self, solver_infos: List[PodInfo]) -> bool:
         """Track the exhausted-batch uid signature; True when the SAME
@@ -2648,7 +2728,14 @@ class BatchScheduler(Scheduler):
         span,
     ):
         """The pre-containment floor: the whole batch runs the per-pod
-        sequential oracle."""
+        sequential oracle. On the card there is no CPU floor: the batch
+        requeues, and K1 solves its pods at their next pop."""
+        if self.device.type == "cuda":
+            span.finish(routed="exhausted_requeue")
+            self._requeue_for_card(
+                solver_infos, pod_scheduling_cycle, "solver ladder exhausted"
+            )
+            return None
         metrics.solver_fallbacks.inc(
             tier=TIER_SEQUENTIAL, reason="ladder_exhausted"
         )
@@ -2766,7 +2853,10 @@ class BatchScheduler(Scheduler):
                 self._complete_solve(pending)
             except SchedulerCrashed:
                 raise
-            except Exception:  # noqa: BLE001 - download/commit failure
+            except Exception as e:  # noqa: BLE001 - download/commit failure
+                if self._halts_on_card(e):
+                    self._halt_on_card_fault(e)
+                    raise
                 # not an exhaustion: the standard recovery requeues the
                 # group (a genuinely poisoned member re-trips
                 # containment on its next pass)
@@ -2815,6 +2905,12 @@ class BatchScheduler(Scheduler):
             )
             for pi in typed_pis:
                 self._quarantine_isolated(pi, reason="poison")
+            if remaining and self.device.type == "cuda":
+                # no CPU floor on the card: requeue for K1
+                self._requeue_for_card(
+                    remaining, pod_scheduling_cycle, "bisection aborted"
+                )
+                return
             self.ladder.record_sequential(len(remaining))
             for pi in remaining:
                 self.pods_fallback += 1
@@ -3025,19 +3121,8 @@ class BatchScheduler(Scheduler):
                 if inj is not None else 1
             )
             row = (fired * 131) % n
-            # on a copy: the resident tensor may still feed a queued solve
-            bump = 1 << 20 if ds.req_dev.dtype == torch.int32 else 1 << 12
-            if isinstance(ds.req_dev, ShardedRows):
-                # only the shard that holds the row is copied
-                k, local = ds.req_dev.locate(row)
-                shards = list(ds.req_dev.shards)
-                shards[k] = shards[k].clone()
-                shards[k][local, 0] += bump
-                ds.req_dev = ShardedRows(ds.req_dev.mesh, shards)
-            else:
-                corrupted = ds.req_dev.clone()
-                corrupted[row, 0] += bump
-                ds.req_dev = corrupted
+            ds.corrupted_from, ds.corrupt_row = ds.req_dev, row
+            ds.req_dev = _bump_carry_row(ds.req_dev, row)
         flightrecorder.mark("carry_corrupt", row=row)
         logger.warning(
             "injected carry corruption on resident row %d", row
@@ -3120,7 +3205,7 @@ class BatchScheduler(Scheduler):
             # already dropped by _on_device_lost.
             sp = p.get("span") or flightrecorder.NULL_SPAN
             sp.finish(routed="device_lost")
-            raise RuntimeError(
+            raise DeviceLostInFlight(
                 "device lost with this batch in flight; requeueing"
             )
         tier = p.get("tier", TIER_CUDA)

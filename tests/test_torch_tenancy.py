@@ -277,11 +277,31 @@ def test_randomized_churn_ledger_matches_the_apiserver_truth():
                         ns, "quota", lambda o: setattr(o, "hard", {
                             **o.hard, "pods": o.hard["pods"] + 3}))
         install_injector(None)
-        time.sleep(1.0)
+        time.sleep(2.0)
         sched.wait_for_inflight_binds(timeout=30)
-        assert _wait(lambda: not sched._pending_exists()
-                     and sched.queue.active_count() == 0, 20)
+
+        def quiescent():
+            # no pod in flight or on its way to a pop: nothing is
+            # dispatched, nothing waits in the active or backoff queue
+            # (a pod there is charged again at its pop), and the quota
+            # controller holds no refund or resync still to write
+            counts = sched.queue.num_pending()
+            return (not sched._pending_exists()
+                    and counts["active"] == 0 and counts["backoff"] == 0
+                    and not qc._refund_retry and not qc._resync)
+
+        assert _wait(quiescent, 20)
         time.sleep(1.0)
+        assert quiescent()
+        # every pod still pending holds no charge: it is parked by the
+        # quota gate, or waits in the unschedulable queue after a
+        # terminal bind failure (refunded at its requeue)
+        parked = {pi.pod.metadata.uid for pi in sched.queue.quota_parked_infos()}
+        waiting = {pi.pod.metadata.uid
+                   for pi in sched.queue.unschedulable_q.values()}
+        for p in client.list_pods()[0]:
+            if not p.spec.node_name and p.metadata.deletion_timestamp is None:
+                assert p.metadata.uid in parked | waiting, p.metadata.name
         for ns in namespaces:
             q = client.get("ResourceQuota", ns, "quota")
             recount = {}

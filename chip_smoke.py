@@ -7,7 +7,9 @@ Phases, one JSON line each (any failure exits non-zero, and the final
 line is printed only when every phase passed):
 
 1. ``device``: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions.
+   CUDA versions; fails unless ``kubernetes_tpu_torch.native`` loaded
+   its C hot path (a commit path on the Python fallbacks is not the one
+   being measured).
 2. ``build``: builds the greedy-solve (K1), constrained-solve (K2),
    victim-search (K3) and shard-candidate (K4) kernels from
    kubernetes_tpu_torch/csrc/, one nvcc each, all started together;
@@ -61,10 +63,14 @@ line is printed only when every phase passed):
    eight candidate rows with 64 pre-existing nominations; (c) four
    PDBs, some at zero budget; (d) V=48 with R=6 (scalar dims), past the
    TPU kernel's 32-victim cap; (e) 40,000 nodes at V=16 with nominations
-   and PDBs. (a)-(c) keep the node slices in shared memory, (d) and (e)
-   stream them. K3 is timed with CUDA events after a warmup launch, the
-   plain version with the host clock; each record names the launch plan
-   as phase 3's do, and a cluster of one CTA fails the phase.
+   and PDBs; (f) 8 nodes of V=12,000 victim slots each (96,000 in all,
+   nodes holding 12,110 pods), R=4, 64 pods of one class: one node's
+   layout alone is larger than a CTA's shared memory. (a)-(c) keep the
+   node slices in shared memory, (d)-(f) stream them. K3 is timed with
+   CUDA events after a warmup launch, the plain version with the host
+   clock; each record names the launch plan as phase 3's do, and a
+   cluster of one CTA fails the phase where the wave has more than 32
+   nodes (at (f) one CTA's warps build all 8 keys).
 4c. ``shard_kernel_vs_twin``: K4 against its plain PyTorch versions on
    the card, tolerance zero. The step entry, 256 pod steps per case on
    (score, shard-local index): (a) the mesh burst's shard shape (5,632
@@ -87,8 +93,11 @@ line is printed only when every phase passed):
    every burst batch solved on the "cuda" tier with K1's launch count
    moving and no fallback of any kind, and that the placements equal a
    replay of the burst's batches, in solve order, through the numpy
-   host_greedy_assign from the post-warmup cluster state. Prints pods/s,
-   p50/p99 pod-to-bind and the per-stage seconds.
+   host_greedy_assign from the post-warmup cluster state; the speculative
+   pipeline's guard: at most one full state upload and no carry
+   divergence. Prints pods/s, p50/p99 pod-to-bind, the per-stage seconds
+   and the pipeline's counters (speculative launches, rewinds by reason,
+   divergences, uploads, pods drained twice into one batch).
 6. ``constrained_bursts``: the five 5,000-node constrained rows of the
    perf matrix (PodTopologySpread, PodAntiAffinity, PodAffinity,
    PreferredPodAffinity, ServiceSpread), each on a fresh stack through
@@ -113,7 +122,8 @@ line is printed only when every phase passed):
    10 pods, each preemptor took exactly one priority-0 victim, every
    wave ran on the "cuda" tier with K3 launching and no host preemption
    or fallback counter moving, and every K3 call equals a CPU replay of
-   its recorded pack and pods through the plain version. Prints pods/s,
+   its recorded pack and pods through the plain version. Prints the pods
+   drained twice into one batch, pods/s,
    p50/p99 create-to-bind, the waves and their sizes and seconds, K3's
    launches, the victims, the pack seconds and the stage seconds.
 8. ``mesh_burst``: the ``burst`` phase again on the node-sharded tier,
@@ -277,13 +287,42 @@ line is printed only when every phase passed):
    p50/p99 create-to-bind, the containment labels (bisections,
    isolations, holds, parks, parked, heals), K1 launches and the
    bisections' sub-solves and milliseconds.
-15. ``kernels``: every ported kernel with its launches on the main path,
+15. ``pipeline``: the speculative pipeline on the card. (a)
+   SchedulingBasic's cluster and pods at max_batch 1,024 (about ten
+   batches chained speculatively) under a profile whose BIND_CONFLICT
+   point fires once: asserts every pod binds exactly once over the whole
+   watch history, the conflict fired, the speculative rewinds stay
+   within the in-flight window plus two, every batch solved on "cuda"
+   through K1 (one launch per solve), no fallback moved, the resident
+   carry equals the host shadow at the end, and every recorded solve
+   equals its CPU replay from its pieces and handed carry (with no
+   rewind and no divergence, also the numpy host greedy chained over
+   the solves in order). (b) The int16 carry at
+   tests/test_speculative_pipeline.py's shape (40 nodes of 4 CPU / 24Mi,
+   300 small pods, max_batch 16), once compressed and once with
+   ``KTPU_CARRY_COMPRESS=0``: identical placements, every solve equal to
+   its replay, and the gate engaged for at least one dispatch (no row of
+   the perf matrix engages it: 64Gi nodes). Prints the pipeline's
+   counters, the pods drained twice into one batch, pods/s and p50/p99.
+16. ``constrained_families``: HostPort/500, NodeAffinity/5000,
+   SchedulingPVs/5000 and SchedulingCSIPVs/500
+   (performance-config.yaml:455-461, :160-170, :505-519), each on a
+   fresh stack built as benchmarks/runner.py builds it (nodes in 10
+   zones, CSINodes with an attach limit of 8, pre-bound PVC/PV pairs,
+   init and measured pods created one by one). Asserts every measured
+   pod binds, no host port booked twice on a node, every node-affinity
+   pod in its zone, no node over its CSI attach limit, every device solve
+   on "cuda" and equal to its CPU replay, K1 + K2 launches equal to the
+   solves, and no fallback beyond the pods the admission routes to the
+   sequential path. Prints pods/s, p50/p99 create-to-bind, K1 and K2
+   launches, R, and the pods sent host-only by reason.
+17. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
-   adds its launches in ``lifecycle``, ``partitions``, ``tenancy`` and
-   ``containment``,
-   K3 in ``lifecycle`` and ``tenancy``).
+   adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
+   ``containment``, ``pipeline`` and ``constrained_families``, K2 in
+   ``constrained_families``, K3 in ``lifecycle`` and ``tenancy``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -1756,19 +1795,20 @@ GIB_KIB = 1 << 20
 
 
 def preempt_problem(seed, n=N_NODES, v=16, r=4, b=PREEMPT_WAVE, pad=8,
-                    classes=False, m=0, p=0):
+                    classes=False, m=0, p=0, node_pods=110):
     """A seeded wave at the main path's width: nodes of 32 CPU / 64Gi /
     110 pods holding v/2..v victims (the rest of the slots inactive, as
     a node short of pods leaves them) sorted priority-desc, full up to
     0-4 free CPUs; ``pad`` inactive pods after the wave. ``classes``:
     4 priorities x 3 request rows x 8 candidate rows in class runs, else
     one class. ``m`` pre-existing nominations, ``p`` PDBs (some at zero
-    budget). Returns host arrays in preempt_batch_plain's order."""
+    budget). ``node_pods``: each node's pod capacity. Returns host arrays
+    in preempt_batch_plain's order."""
     rng = np.random.default_rng(seed)
     alloc = np.zeros((n, r), np.int32)
     alloc[:, 0] = 32000
     alloc[:, 1] = 64 * GIB_KIB
-    alloc[:, 3] = 110
+    alloc[:, 3] = node_pods
     if r > 4:
         alloc[:, 4:] = rng.choice([0, 4, 8], (n, r - 4))
     count = rng.integers(v // 2, v + 1, n)
@@ -1864,6 +1904,8 @@ def k3_operations(host, chosen):
 
 
 def preempt_kernel_vs_twin(pk, pre_mod):
+    from kubernetes_tpu_torch.ops.cluster_plan import MIN_ROWS_PER_CTA
+
     cases = [
         ("preemption5000_wave", dict(seed=0)),
         ("classes_nominations", dict(seed=1, b=512, classes=True, m=64)),
@@ -1872,6 +1914,11 @@ def preempt_kernel_vs_twin(pk, pre_mod):
         # 40,000 nodes at V=16: above what 16 CTAs hold in shared memory
         ("above_resident_gate", dict(seed=4, n=40000, b=128, classes=True,
                                      m=64, p=2)),
+        # 8 nodes of 12,000 victim slots (96,000 in all): one node's layout
+        # alone is larger than a CTA's shared memory, so every node
+        # streams; 8 nodes make one CTA, whose warps build a key each
+        ("v12000_wide_nodes", dict(seed=5, n=8, v=12000, b=64,
+                                   node_pods=12000 + 110)),
     ]
     timing = None
     max_err = 0.0
@@ -1928,7 +1975,7 @@ def preempt_kernel_vs_twin(pk, pre_mod):
         emit("preempt_kernel_vs_twin", **rec)
         if not all(equal.values()):
             raise AssertionError(f"K3 disagrees with its twin on {name}")
-        if rec["cluster"] < 2:
+        if rec["cluster"] < 2 and n > MIN_ROWS_PER_CTA:
             raise AssertionError(f"{name} launched a cluster of one CTA")
         if rec["placed"] == 0:
             raise AssertionError(f"{name}: the wave placed no preemptor")
@@ -2055,6 +2102,7 @@ def preemption_burst(pk, gk):
         names = [p.metadata.name for p in measured]
         watch = BindWatcher(server, names)
         create_times = {}
+        drains = DrainCounter(sched.queue)
         pk.launches = 0  # the counts of THIS run of the main path
         gk.launches = 0
         start = time.perf_counter()
@@ -2069,6 +2117,7 @@ def preemption_burst(pk, gk):
         launches, k1_launches = pk.launches, gk.launches
         sched.wait_for_inflight_binds(timeout=60)
         watch.stop()
+        drains.close()
     finally:
         pk.preempt_solve = orig_solve
         pre_mod.pack_preemption_state = orig_pack
@@ -2159,7 +2208,8 @@ def preemption_burst(pk, gk):
         preempt_kernel_launches=launches, greedy_kernel_launches=k1_launches,
         victims=len(evicted), victims_by_tier=victims_by_tier,
         nominations=len(applied), renominations=renominated,
-        pack_seconds=packs, solves_by_tier=tiers, counters_moved=moved,
+        drained_twice=drains.twice, pack_seconds=packs,
+        solves_by_tier=tiers, counters_moved=moved,
         stage_seconds=stages, replay_equal=True, replay_seconds=replay_s,
         fill_seconds=fill_s, setup_seconds=setup_s,
     )
@@ -2524,6 +2574,66 @@ def host_replay(dispatched, state0, config):
     return want
 
 
+#: the speculative pipeline's rewind reasons (scheduler/batch.py): a
+#: divergent row patched in place, a wait for in-flight mirrors, a drain
+REWIND_REASONS = ("row_patch", "mirror_wait", "drain")
+
+
+def pipeline_counters(sched):
+    """The speculative pipeline's counters of one scheduler (the rewind
+    reasons from the process-wide metric)."""
+    from kubernetes_tpu_torch.utils import metrics
+
+    return dict(
+        speculative_launches=sched.speculative_launches,
+        speculative_rewinds=sched.speculative_rewinds,
+        rewinds_by_reason={
+            r: metrics.speculative_rewinds.value(reason=r)
+            for r in REWIND_REASONS
+        },
+        carry_divergences=sched.carry_divergences,
+        state_uploads=sched.state_uploads,
+    )
+
+
+def pipeline_moved(after, before):
+    """What the counters of ``pipeline_counters`` moved by."""
+    out = {k: after[k] - before[k] for k in after if k != "rewinds_by_reason"}
+    out["rewinds_by_reason"] = {
+        r: after["rewinds_by_reason"][r] - before["rewinds_by_reason"][r]
+        for r in REWIND_REASONS
+    }
+    return out
+
+
+class DrainCounter:
+    """Counts pods drained twice into one batch: a status write's informer
+    echo re-adds a pod already popped, and a drain's window wait takes it
+    again (in both packages' queue, ROADMAP Queue 3 item 2). Wraps the
+    queue's ``pop_batch`` until ``close``."""
+
+    def __init__(self, queue):
+        self._queue = queue
+        self._orig = queue.pop_batch
+        self.twice = 0
+        self.batches = 0
+
+        def counting(*args, **kwargs):
+            batch = self._orig(*args, **kwargs)
+            uids = {}
+            for pi in batch:
+                uid = pi.pod.metadata.uid
+                uids[uid] = uids.get(uid, 0) + 1
+            self.twice += sum(c - 1 for c in uids.values())
+            self.batches += 1
+            return batch
+
+        queue.pop_batch = counting
+
+    def close(self):
+        self._queue.pop_batch = self._orig
+
+
 def burst(gk, device=None, mesh=None, sk=None):
     """SchedulingBasic through the entry points (the ``burst`` phase); with
     ``mesh`` (a NodeMesh) and ``sk`` (the K4 module) the ``mesh_burst``
@@ -2602,6 +2712,8 @@ def burst(gk, device=None, mesh=None, sk=None):
         carry_divergences=sched.carry_divergences,
     )
     stages0 = dict(sched.stage_seconds)
+    pipe0 = pipeline_counters(sched)
+    drains = DrainCounter(sched.queue)
     burst_pods = [
         make_pod(f"burst-{i}").container(cpu="250m", memory="512Mi").obj()
         for i in range(N_PODS)
@@ -2627,6 +2739,9 @@ def burst(gk, device=None, mesh=None, sk=None):
     sched.wait_for_inflight_binds(timeout=60)
     watch.stop()
     sched._dispatch_solve = orig_dispatch
+    drains.close()
+    pipe = pipeline_moved(pipeline_counters(sched), pipe0)
+    pipe["drained_twice"] = drains.twice
     stages = {
         k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
     }
@@ -2668,6 +2783,12 @@ def burst(gk, device=None, mesh=None, sk=None):
         raise AssertionError(f"a fallback counter moved: {moved}")
     if any(p["tier"] != tier for p in dispatched):
         raise AssertionError("a burst dispatch was solved off the card")
+    # the reference's steady-state guard (tests/test_state_uploads_guard.py)
+    if pipe["state_uploads"] > 1 or pipe["carry_divergences"]:
+        raise AssertionError(
+            f"the steady burst made {pipe['state_uploads']} full uploads "
+            f"and {pipe['carry_divergences']} carry divergences"
+        )
     if mesh is not None:
         # one device holds every shard: ONE K4 launch per greedy batch
         if tier == "cuda" and (k4_launches != len(dispatched) or launches != 0):
@@ -2705,8 +2826,8 @@ def burst(gk, device=None, mesh=None, sk=None):
         batches=len(dispatched), batch_sizes=[p["b"] for p in dispatched],
         solves_by_tier=tiers,
         greedy_kernel_launches=launches, counters_moved=moved,
-        stage_seconds=stages, replay_equal=True, replay_seconds=replay_s,
-        setup_seconds=setup_s,
+        pipeline=pipe, stage_seconds=stages, replay_equal=True,
+        replay_seconds=replay_s, setup_seconds=setup_s,
     )
     if mesh is None:
         emit("burst", **rec)
@@ -5214,6 +5335,634 @@ def containment(gk, device=None, rows=POISON_ROWS):
     return totals
 
 
+# -- phase 15: the speculative pipeline ---------------------------------------
+
+PIPELINE_MAX_BATCH = 1024
+PIPELINE_WAIT_S = 300
+# the reference guard's pressure knob (tests/test_speculative_pipeline.py
+# holds each commit on the committer thread): held longer than a batch's
+# host pack (~58 ms at 1,024 pods x 5,000 nodes, NVIDIA H100 80GB HBM3,
+# 700.00 W), the dispatcher gets ahead of the committer and the next
+# solves launch on the shadow expectation
+PIPELINE_HOLD_S = 0.1
+# tests/test_speculative_pipeline.py's int16 differential: 40 nodes of 4
+# CPU / 24Mi / 200 pods, 300 pods of 50-150m and 512-1024Ki (seed 11) in
+# chunks of 128, max_batch 16; 24 pods of 1Mi fill a node at the int16
+# gate's 24,576 KiB ceiling
+INT16_CASE = dict(nodes=40, cpu="4", memory="24Mi", node_pods=200, pods=300,
+                  seed=11, max_batch=16, chunk=128)
+
+
+def pipeline_conflict(gk, device=None, n_nodes=N_NODES, n_pods=N_PODS,
+                      hold=0.0):
+    """SchedulingBasic's cluster and pods at max_batch 1,024 (about ten
+    batches) under a profile whose BIND_CONFLICT point fires once (rate
+    1.0, one fire): every pod binds exactly once, the rewinds stay within
+    the in-flight window plus two, every batch solves on the card through
+    K1, and each recorded solve equals its CPU replay (with no rewind and
+    no divergence, also the numpy host greedy chained over every solve
+    from the post-warmup state). ``hold``: seconds each commit is held on
+    the committer thread, so the batches chain speculatively (asserted);
+    with none the run records whether they do as the scheduler runs."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+        install_injector,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    tier = "cuda" if device is None else "torch"  # the CPU is for rehearsal
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=PIPELINE_MAX_BATCH, device=device)
+    if sched.device.type != ("cuda" if device is None else device):
+        raise AssertionError(f"the scheduler solves on {sched.device}")
+    case = "bind_conflict_held" if hold else "bind_conflict"
+    if hold:
+        orig_complete = sched._complete_solve
+
+        def held(p):
+            time.sleep(hold)
+            orig_complete(p)
+
+        sched._complete_solve = held
+    for i in range(n_nodes):
+        client.create_node(
+            make_node(f"node-{i}").capacity(cpu="32", memory="64Gi", pods=110)
+            .obj()
+        )
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    warm = [
+        make_pod(f"warm-{i}").container(cpu="100m", memory="128Mi").obj()
+        for i in range(PIPELINE_MAX_BATCH)
+    ]
+    watch = BindWatcher(server, [p.metadata.name for p in warm])
+    client.create_pods_bulk(warm)
+    sched.start()
+    if not watch.wait(PIPELINE_WAIT_S):
+        raise AssertionError("the warm pods did not all bind")
+    watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    setup_s = time.perf_counter() - t_setup
+
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch = sched._dispatch_solve
+    orig_solve = batch_mod.solve_packed
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+    state0 = shadow_state(sched)
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    counters0 = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    bind_retries0 = metrics.bind_retries.value()
+    stages0 = dict(sched.stage_seconds)
+    pipe0 = pipeline_counters(sched)
+    point = FaultPoint.BIND_CONFLICT
+    fired0 = metrics.faults_injected.value(point=point)
+    burst_pods = [
+        make_pod(f"burst-{i}").container(cpu="250m", memory="512Mi").obj()
+        for i in range(n_pods)
+    ]
+    names = [p.metadata.name for p in burst_pods]
+    watch = BindWatcher(server, names)
+    create_times = {}
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    drains = DrainCounter(sched.queue)
+    install_injector(FaultInjector(FaultProfile(
+        "pipeline-one-conflict", seed=0,
+        points={point: PointConfig(rate=1.0, max_fires=1)},
+    )))
+    gk.launches = 0  # the count of THIS run
+    try:
+        start = time.perf_counter()
+        for lo in range(0, n_pods, 256):
+            chunk = burst_pods[lo:lo + 256]
+            now = time.perf_counter()
+            for p in chunk:
+                create_times[p.metadata.name] = now
+            client.create_pods_bulk(chunk)
+        completed = watch.wait(PIPELINE_WAIT_S)
+        elapsed = time.perf_counter() - start
+        launches = gk.launches
+        sched.wait_for_inflight_binds(timeout=60)
+    finally:
+        install_injector(None)
+        watch.stop()
+        drains.close()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+    fired = metrics.faults_injected.value(point=point) - fired0
+    pipe = pipeline_moved(pipeline_counters(sched), pipe0)
+    pipe["drained_twice"] = drains.twice
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    shadow_state(sched)  # nothing in flight: the resident carry == shadow
+    max_inflight = sched.max_inflight
+    pods, _ = client.list_pods()
+    placed = {p.metadata.name: p.spec.node_name for p in pods}
+    twice = double_binds(server, rebinds_allowed=0)
+    sched.stop()
+    informers.stop()
+
+    bound = sum(1 for n in names if placed.get(n))
+    if not completed or bound != n_pods:
+        raise AssertionError(f"{case}: only {bound}/{n_pods} bound")
+    if fired < 1:
+        raise AssertionError(f"{case}: the conflict never fired")
+    if hold and pipe["speculative_launches"] < 1:
+        raise AssertionError(f"{case}: no solve launched speculatively")
+    if pipe["speculative_rewinds"] > max_inflight + 2:
+        raise AssertionError(
+            f"{case}: {pipe['speculative_rewinds']} rewinds from one "
+            f"conflict (at most {max_inflight + 2})"
+        )
+    if twice:
+        raise AssertionError(f"{case}: {len(twice)} uids bound twice")
+    if set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{case}: batches off {tier}: {tiers}")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{case}: a dispatch solved off the card")
+    if tier == "cuda" and (launches <= 0 or launches != len(calls)):
+        raise AssertionError(
+            f"{case}: K1 launched {launches} times for "
+            f"{len(calls)} solves"
+        )
+    if any(moved.values()):
+        raise AssertionError(f"{case}: a fallback counter moved: {moved}")
+    per_node = {}
+    for name, node in placed.items():
+        if node:
+            w, b = per_node.get(node, (0, 0))
+            per_node[node] = ((w + 1, b) if name.startswith("warm-")
+                              else (w, b + 1))
+    for node, (w, b) in per_node.items():
+        if (100 * w + 250 * b > 32000 or 128 * w + 512 * b > 65536
+                or w + b > 110):
+            raise AssertionError(f"node {node} over capacity: {w} + {b} pods")
+    t_replay = time.perf_counter()
+    want = replay_solves(calls, dispatched)
+    # with no rewind and no divergence the device carry chained every
+    # solve: the numpy host greedy over the solves in order must agree
+    chained = not pipe["speculative_rewinds"] and not pipe["carry_divergences"]
+    if chained:
+        chain = host_replay(dispatched, state0, sched.solver_config)
+        if any(chain.get(n) != placed.get(n) for n in names):
+            raise AssertionError(f"{case}: the chained replay differs")
+    replay_s = time.perf_counter() - t_replay
+    mismatched = [n for n in names if want.get(n) != placed.get(n)]
+    if mismatched:
+        raise AssertionError(
+            f"{case}: {len(mismatched)} placements differ from the "
+            f"replay, e.g. {mismatched[:3]}"
+        )
+    lat = sorted(watch.bind_times[n] - create_times[n] for n in names)
+    rec = dict(
+        case=case, hold_seconds=hold, nodes=n_nodes, pods=n_pods,
+        max_batch=PIPELINE_MAX_BATCH, bound=bound, seconds=elapsed,
+        pods_per_sec=n_pods / elapsed,
+        p50_pod_to_bind_s=lat[len(lat) // 2],
+        p99_pod_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        batches=len(dispatched), batch_sizes=[p["b"] for p in dispatched],
+        conflict_fired=fired,
+        bind_retries=metrics.bind_retries.value() - bind_retries0,
+        max_inflight=max_inflight, pipeline=pipe, solves_by_tier=tiers,
+        greedy_kernel_launches=launches, counters_moved=moved,
+        replay_equal=True, chained_host_replay=chained,
+        replay_seconds=replay_s, stage_seconds=stages, setup_seconds=setup_s,
+    )
+    emit("pipeline", **rec)
+    return rec
+
+
+def pipeline_int16(gk, device=None, case=INT16_CASE):
+    """The int16 carry differential at the reference's shape, once with
+    the carry compressed where its range gate allows and once with
+    ``KTPU_CARRY_COMPRESS=0``: both place every pod, identically, every
+    solve equals its CPU replay, and the compressed run engaged the gate
+    for at least one dispatch. A correctness case, not a cell: no row of
+    the perf matrix engages the gate (64Gi nodes put the memory column far
+    above 2^15 KiB)."""
+    import random
+
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    tier = "cuda" if device is None else "torch"
+    rng = random.Random(case["seed"])
+    specs = [
+        (f"c{i}", f"{rng.choice([50, 100, 150])}m",
+         f"{rng.choice([512, 1024])}Ki")
+        for i in range(case["pods"])
+    ]
+    runs = {}
+    for flag in ("1", "0"):
+        prev = os.environ.get("KTPU_CARRY_COMPRESS")
+        os.environ["KTPU_CARRY_COMPRESS"] = flag
+        try:
+            server = APIServer()
+            client = Client(server)
+            informers = InformerFactory(server)
+            sched = new_scheduler(client, informers, batch=True,
+                                  max_batch=case["max_batch"], device=device)
+        finally:
+            if prev is None:
+                os.environ.pop("KTPU_CARRY_COMPRESS", None)
+            else:
+                os.environ["KTPU_CARRY_COMPRESS"] = prev
+        if sched.carry_compress_enabled != (flag == "1"):
+            raise AssertionError("KTPU_CARRY_COMPRESS was not read")
+        for i in range(case["nodes"]):
+            client.create_node(
+                make_node(f"g{i}").capacity(cpu=case["cpu"],
+                                            memory=case["memory"],
+                                            pods=case["node_pods"]).obj()
+            )
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        dispatched, seen, calls = [], set(), []
+        orig_dispatch = sched._dispatch_solve
+        orig_solve = batch_mod.solve_packed
+        recording_dispatch, recording_solve = solve_recorders(
+            orig_dispatch, orig_solve, dispatched, seen, calls
+        )
+        sched._dispatch_solve = recording_dispatch
+        batch_mod.solve_packed = recording_solve
+        saved0 = metrics.carry_compress_bytes_saved.value()
+        ranged0 = metrics.carry_compress_disengages.value(reason="range")
+        tiers0 = dict(sched.ladder.solves_by_tier)
+        pipe0 = pipeline_counters(sched)
+        pods = [
+            make_pod(n).creation_timestamp(float(i))
+            .container(cpu=cpu, memory=mem).obj()
+            for i, (n, cpu, mem) in enumerate(specs)
+        ]
+        watch = BindWatcher(server, [n for n, _, _ in specs])
+        gk.launches = 0
+        try:
+            sched.start()
+            start = time.perf_counter()
+            for lo in range(0, len(pods), case["chunk"]):
+                client.create_pods_bulk(pods[lo:lo + case["chunk"]])
+            completed = watch.wait(120)
+            elapsed = time.perf_counter() - start
+            launches = gk.launches
+            sched.wait_for_inflight_binds(timeout=60)
+        finally:
+            watch.stop()
+            sched._dispatch_solve = orig_dispatch
+            batch_mod.solve_packed = orig_solve
+        tiers = {
+            k: v - tiers0.get(k, 0)
+            for k, v in sched.ladder.solves_by_tier.items()
+        }
+        pipe = pipeline_moved(pipeline_counters(sched), pipe0)
+        placed = {p.metadata.name: p.spec.node_name
+                  for p in client.list_pods()[0]}
+        sched.stop()
+        informers.stop()
+        label = "int16" if flag == "1" else "int32"
+        if not completed or not all(placed.get(n) for n, _, _ in specs):
+            raise AssertionError(f"int16_carry ({label}): a pod did not bind")
+        if set(k for k, v in tiers.items() if v) != {tier}:
+            raise AssertionError(f"int16_carry ({label}): off {tier}: {tiers}")
+        if tier == "cuda" and (launches <= 0 or launches != len(calls)):
+            raise AssertionError(
+                f"int16_carry ({label}): K1 launched {launches} times for "
+                f"{len(calls)} solves"
+            )
+        if pipe["carry_divergences"]:
+            raise AssertionError(f"int16_carry ({label}): the carry diverged")
+        want = replay_solves(calls, dispatched)
+        if any(want.get(n) != placed.get(n) for n, _, _ in specs):
+            raise AssertionError(f"int16_carry ({label}): replay differs")
+        runs[label] = dict(
+            placed=placed, seconds=elapsed, dispatches=len(calls),
+            compressed_dispatches=sum(1 for c in calls if c["compress"]),
+            bytes_saved=metrics.carry_compress_bytes_saved.value() - saved0,
+            range_disengages=metrics.carry_compress_disengages.value(
+                reason="range") - ranged0,
+            greedy_kernel_launches=launches, pipeline=pipe,
+        )
+    if runs["int16"]["placed"] != runs["int32"]["placed"]:
+        raise AssertionError("int16_carry: int16 and int32 place differently")
+    if runs["int16"]["compressed_dispatches"] < 1:
+        raise AssertionError("int16_carry: the int16 gate never engaged")
+    if runs["int32"]["compressed_dispatches"]:
+        raise AssertionError("int16_carry: KTPU_CARRY_COMPRESS=0 compressed")
+    rec = dict(
+        case="int16_carry", pods=case["pods"], nodes=case["nodes"],
+        max_batch=case["max_batch"], placements_equal=True,
+        **{label: {k: v for k, v in r.items() if k != "placed"}
+           for label, r in runs.items()},
+    )
+    emit("pipeline", **rec)
+    return rec
+
+
+def pipeline(gk, device=None, n_nodes=N_NODES, n_pods=N_PODS):
+    """The ``pipeline`` phase: the bind-conflict burst as the scheduler
+    runs it and with its commits held, then the int16 carry
+    differential."""
+    t0 = time.perf_counter()
+    conflicts = [pipeline_conflict(gk, device, n_nodes, n_pods, hold)
+                 for hold in (0.0, PIPELINE_HOLD_S)]
+    int16 = pipeline_int16(gk, device)
+    totals = dict(greedy_kernel_launches=sum(
+                      r["greedy_kernel_launches"] for r in conflicts)
+                  + int16["int16"]["greedy_kernel_launches"]
+                  + int16["int32"]["greedy_kernel_launches"])
+    emit("pipeline_phase", seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
+# -- phase 16: the remaining constrained filter families ----------------------
+
+# benchmarks/config/performance-config.yaml, with the defaults of :9-15 (32
+# CPU, 64Gi, 110 pods, 10 zones, max_batch 1,024), built as
+# benchmarks/runner.py builds them (_build_pod :144-212; nodes, CSINodes
+# and PV pairs :800-891; init and measured pods created one by one
+# :1031-1044, :1299-1302)
+FIVE_ZONES = [f"zone-{z}" for z in range(5)]
+FAMILY_ROWS = [
+    dict(name="HostPort/500", source=":455-461", nodes=500, init_pods=1000,
+         init_pod={}, measured=450, pod=dict(host_port=8080), wait_s=600),
+    dict(name="NodeAffinity/5000", source=":160-170", nodes=5000,
+         init_pods=1000, init_pod=None, measured=1000,
+         pod=dict(node_affinity=FIVE_ZONES), wait_s=420),
+    dict(name="SchedulingPVs/5000", source=":505-511", nodes=5000,
+         init_pods=1000, init_pod={}, measured=1000, pod=dict(pvs="simple"),
+         wait_s=600),
+    dict(name="SchedulingCSIPVs/500", source=":512-519", nodes=500,
+         init_pods=500, init_pod={}, measured=1000, pod=dict(pvs="csi"),
+         csi_limit=8, wait_s=900),
+]
+
+
+def family_pod(make_pod, name, spec, idx):
+    """One pod of a family row, as ``benchmarks/runner.py _build_pod``
+    builds it: 100m / 128Mi, a host port, one required zone of five
+    rotating with the pod's index, or one pre-bound PVC."""
+    w = make_pod(name).container(cpu="100m", memory="128Mi",
+                                 host_port=spec.get("host_port", 0))
+    zones = spec.get("node_affinity")
+    if zones:
+        w.node_affinity_in(ZONE_KEY, [zones[idx % len(zones)]])
+    if spec.get("pvs"):
+        w.pvc(f"pvc-{name}-0")
+    return w.obj()
+
+
+def family_row(row, gk, ck, device=None):
+    """One family row on a fresh stack through the entry points: every
+    measured pod binds, the row's hard constraint holds (no host port
+    booked twice on a node; every node-affinity pod in its zone; no node
+    over its CSI attach limit), every device solve ran on the card and
+    equals its CPU replay through the plain versions, and no fallback
+    moved beyond the pods the admission sends to the sequential path,
+    which the row records by reason."""
+    import copy
+    from collections import Counter
+
+    from kubernetes_tpu_torch.api.types import (
+        CSINode, CSINodeDriver, ObjectMeta, PersistentVolume,
+        PersistentVolumeClaim,
+    )
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    tier = "cuda" if device is None else "torch"  # the CPU is for rehearsal
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH, device=device)
+    if sched.device.type != ("cuda" if device is None else device):
+        raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    for i in range(row["nodes"]):
+        client.create_node(
+            make_node(f"node-{i}").capacity(cpu="32", memory="64Gi", pods=110)
+            .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+            .obj()
+        )
+        if row.get("csi_limit"):
+            server.create(CSINode(
+                metadata=ObjectMeta(name=f"node-{i}", namespace=""),
+                drivers=[CSINodeDriver(name="ebs.csi.aws.com",
+                                       node_id=f"node-{i}",
+                                       allocatable_count=row["csi_limit"])],
+            ))
+    init_spec = row["pod"] if row["init_pod"] is None else row["init_pod"]
+    init_names = [f"init-{i}" for i in range(row["init_pods"])]
+    names = [f"measure-{i}" for i in range(row["measured"])]
+    pv_owners = ((init_names if init_spec.get("pvs") else [])
+                 + (names if row["pod"].get("pvs") else []))
+    for owner in pv_owners:
+        cn, vn = f"pvc-{owner}-0", f"pv-{owner}-0"
+        server.create(PersistentVolumeClaim(
+            metadata=ObjectMeta(name=cn, namespace="default"),
+            volume_name=vn, requested_bytes=1 << 30,
+        ))
+        pv = PersistentVolume(
+            metadata=ObjectMeta(name=vn, namespace=""),
+            capacity_bytes=1 << 30, claim_ref_namespace="default",
+            claim_ref_name=cn,
+        )
+        if row["pod"].get("pvs") == "csi":
+            pv.csi_driver = "ebs.csi.aws.com"
+            pv.csi_volume_handle = vn
+        server.create(pv)
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    watch = BindWatcher(server, init_names)
+    for i, nm in enumerate(init_names):
+        client.create_pod(family_pod(make_pod, nm, init_spec, i))
+    sched.start()
+    if not watch.wait(row["wait_s"]):
+        raise AssertionError(f"{name}: the init pods did not all bind")
+    watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    setup_s = time.perf_counter() - t_setup
+
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch = sched._dispatch_solve
+    orig_solve = batch_mod.solve_packed
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+    measured = [family_pod(make_pod, nm, row["pod"], i)
+                for i, nm in enumerate(names)]
+    # the admission's verdict on each measured pod: device, or the
+    # sequential path and why
+    host_only = Counter(
+        adm.reason for adm in
+        (sched.classify_pod(copy.deepcopy(p)) for p in measured)
+        if not adm.device_ok
+    )
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    counters0 = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    stages0 = dict(sched.stage_seconds)
+    watch = BindWatcher(server, names)
+    create_times = {}
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    gk.launches = 0  # the counts of THIS row's measured run
+    ck.launches = 0
+    try:
+        start = time.perf_counter()
+        for p in measured:
+            create_times[p.metadata.name] = time.perf_counter()
+            client.create_pod(p)
+        completed = watch.wait(row["wait_s"])
+        elapsed = time.perf_counter() - start
+        k1, k2 = gk.launches, ck.launches
+        sched.wait_for_inflight_binds(timeout=60)
+    finally:
+        watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    pods, _ = client.list_pods()
+    placed = {p.metadata.name: p.spec.node_name for p in pods}
+    sched.stop()
+    informers.stop()
+
+    bound = sum(1 for n in names if placed.get(n))
+    if not completed or bound != len(names):
+        raise AssertionError(f"{name}: only {bound}/{len(names)} pods bound")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{name}: a dispatch solved off the card")
+    if dispatched and set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{name}: solves off the {tier} tier: {tiers}")
+    if tier == "cuda" and k1 + k2 != len(calls):
+        raise AssertionError(
+            f"{name}: K1 {k1} + K2 {k2} launches for {len(calls)} solves"
+        )
+    sequential = sum(host_only.values())
+    if moved["pods_fallback"] != sequential or any(
+        v for k, v in moved.items() if k != "pods_fallback"
+    ):
+        raise AssertionError(
+            f"{name}: a fallback counter moved: {moved}; the admission sent "
+            f"{sequential} pods to the sequential path"
+        )
+    spec = row["pod"]
+    if spec.get("host_port"):
+        hosts = [placed[n] for n in names]
+        if len(hosts) != len(set(hosts)):
+            raise AssertionError(f"{name}: a host port booked twice on a node")
+    for group, gspec in ((names, spec), (init_names, init_spec)):
+        zones = gspec.get("node_affinity")
+        for i, n in enumerate(group if zones else ()):
+            node = int(placed[n].split("-")[1])
+            if f"zone-{node % 10}" != zones[i % len(zones)]:
+                raise AssertionError(f"{name}: {n} outside its zone")
+    if row.get("csi_limit"):
+        per_node = Counter(placed[n] for n in pv_owners if placed.get(n))
+        if max(per_node.values()) > row["csi_limit"]:
+            raise AssertionError(f"{name}: a node over its CSI attach limit")
+    t_replay = time.perf_counter()
+    want = replay_solves(calls, dispatched)
+    replay_s = time.perf_counter() - t_replay
+    mismatched = [n for n in want if n in create_times
+                  and want[n] != placed.get(n)]
+    if mismatched:
+        raise AssertionError(
+            f"{name}: {len(mismatched)} placements differ from the replay, "
+            f"e.g. {mismatched[:3]}"
+        )
+    lat = sorted(watch.bind_times[n] - create_times[n] for n in names)
+    rec = dict(
+        row=name, source=f"performance-config.yaml{row['source']}",
+        nodes=row["nodes"], init_pods=row["init_pods"], pods=len(names),
+        bound=bound, seconds=elapsed, pods_per_sec=len(names) / elapsed,
+        p50_create_to_bind_s=lat[len(lat) // 2],
+        p99_create_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        batches=len(dispatched), batch_sizes=[p["b"] for p in dispatched],
+        modes=sorted(set(c["mode"] for c in calls)),
+        r=max((dict(c["pieces"])["req"].shape[1] for c in calls), default=0),
+        greedy_kernel_launches=k1, constrained_kernel_launches=k2,
+        host_only=dict(host_only), pods_on_device=len(want),
+        solves_by_tier=tiers, counters_moved=moved, replay_equal=True,
+        replay_seconds=replay_s, stage_seconds=stages, setup_seconds=setup_s,
+    )
+    emit("constrained_families", **rec)
+    return rec
+
+
+def constrained_families(gk, ck, device=None, rows=FAMILY_ROWS):
+    """The ``constrained_families`` phase: each row on a fresh stack."""
+    t0 = time.perf_counter()
+    recs = [family_row(row, gk, ck, device) for row in rows]
+    totals = dict(
+        greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs),
+        constrained_kernel_launches=sum(
+            r["constrained_kernel_launches"] for r in recs),
+    )
+    emit("constrained_families_phase", rows=len(recs),
+         seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -5245,13 +5994,19 @@ def main():
     from kubernetes_tpu_torch.ops import sinkhorn as sk_mod
     from kubernetes_tpu_torch.ops.mesh import NodeMesh
 
+    from kubernetes_tpu_torch import native
+
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit(
         "device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda,
+        cuda=torch.version.cuda, native_hotpath=native.hotpath is not None,
     )
+    if native.hotpath is None:
+        # the commit path would run its Python fallbacks: not the path
+        # being measured
+        raise AssertionError("kubernetes_tpu_torch.native did not load")
     build_s = build_kernels([gk, ck, pk, sk])
 
     timing, max_err = kernel_vs_twin(gk, asg_mod, asg_mod.GreedyConfig)
@@ -5271,6 +6026,8 @@ def main():
     parts = partitions(gk)
     ten = tenancy(gk, pk)
     cont = containment(gk)
+    pipe = pipeline(gk)
+    fam = constrained_families(gk, ck)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -5280,7 +6037,9 @@ def main():
         + life["greedy_kernel_launches"]
         + sum(r["greedy_kernel_launches"] for r in parts)
         + ten["greedy_kernel_launches"]
-        + cont["greedy_kernel_launches"],
+        + cont["greedy_kernel_launches"]
+        + pipe["greedy_kernel_launches"]
+        + fam["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],
@@ -5304,7 +6063,8 @@ def main():
         route="cuda",
         source="kubernetes_tpu_torch/csrc/constrained_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_constrained.py:182",
-        launches=sum(r["constrained_kernel_launches"] for r in rows),
+        launches=sum(r["constrained_kernel_launches"] for r in rows)
+        + fam["constrained_kernel_launches"],
         max_abs_err=c_max_err,
         ms=c_timing["ms"],
         plain_ms=c_timing["plain_ms"],

@@ -51,6 +51,9 @@
 //             V = 16, R = 4: 313 nodes in ~150 KB);
 //   streaming (above it, e.g. V = 48, R = 6): the same layout in a
 //             device-memory scratch region per CTA (L2), the same code.
+//             Shared memory then holds only the fixed words, so a node
+//             of any size streams: at V = 12,000, R = 4 one node's
+//             layout (~294 KB) is larger than a CTA's shared memory.
 // The pick key is packed into six words whose lexicographic unsigned
 // order is the composite key's (tier, violations, first victim's
 // priority, priority sum, victims, latest earliest start, index): taking

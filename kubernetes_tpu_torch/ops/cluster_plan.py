@@ -69,17 +69,20 @@ def _plan(
     bounds: Tuple[int, ...], node_bytes: int, fixed_bytes: int,
     static_bytes: int, extra_warps: int, smem_limit: int,
     shards: Tuple[int, ...] = (), min_threads: int = 32,
+    odd_stride: bool = False,
 ) -> LaunchPlan:
     """Threads (one per row of the largest slice, in whole warps, at
     least ``min_threads`` and at most ``MAX_THREADS`` with the extra
     warps), the gate side and the shared memory of the CTAs whose rows
-    ``bounds`` gives."""
+    ``bounds`` gives. ``odd_stride``: a resident slice takes ``cap | 1``
+    rows (K3's layout)."""
     cap = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
     row_threads = min(
         MAX_THREADS - 32 * extra_warps,
         max(min_threads, 32 * -(-cap // 32)),
     )
-    resident_bytes = _align(fixed_bytes + cap * node_bytes)
+    rows = cap | 1 if odd_stride else cap
+    resident_bytes = _align(fixed_bytes + rows * node_bytes)
     resident = static_bytes + resident_bytes <= smem_limit
     smem = resident_bytes if resident else _align(fixed_bytes)
     if static_bytes + smem > smem_limit:
@@ -97,6 +100,7 @@ def plan_launch(
     n: int, cluster: int, node_bytes: int, fixed_bytes: int,
     static_bytes: int = 0, extra_warps: int = 0,
     smem_limit: int = SMEM_PER_CTA, min_threads: int = 32,
+    odd_stride: bool = False,
 ) -> LaunchPlan:
     """The plan for N node rows on at most ``cluster`` CTAs.
 
@@ -106,12 +110,15 @@ def plan_launch(
     ``extra_warps``: warps per CTA that own no rows (K2's parameter
     warp). Threads: one per row of the largest slice, in whole warps, at
     least ``min_threads`` (K3's warps build keys one node each) and at
-    most ``MAX_THREADS`` with the extra warps."""
+    most ``MAX_THREADS`` with the extra warps. ``odd_stride``: a resident
+    slice is laid out at an odd row stride, ``cap | 1`` rows (K3); the
+    streaming side holds no row in shared memory."""
     if n < 1 or cluster < 1:
         raise ValueError(f"no plan for {n} rows on {cluster} CTAs")
     c = min(cluster, max(1, -(-n // MIN_ROWS_PER_CTA)))
     return _plan(slice_bounds(n, c), node_bytes, fixed_bytes, static_bytes,
-                 extra_warps, smem_limit, min_threads=min_threads)
+                 extra_warps, smem_limit, min_threads=min_threads,
+                 odd_stride=odd_stride)
 
 
 def plan_shards(

@@ -82,22 +82,23 @@ def fixed_words(r: int) -> int:
 def plan_for(n: int, r: int, v: int, p: int, cluster: int,
              static_bytes: int = 0) -> LaunchPlan:
     """K3's launch plan for N nodes of R dims with V victim slots and P
-    PDBs on at most ``cluster`` CTAs. A resident node holds its whole
-    layout; every CTA stages the fixed words, and the layout's odd stride
-    may add one node (csrc/preempt_solve.cu dynamic_smem_bytes). Every
-    CTA runs ``MAX_THREADS`` threads: its warps build the keys, one node
-    each, whatever the slice's length. Raises KernelError above
-    ``MAX_DIMS`` dims or ``MAX_VICTIMS`` victim slots."""
+    PDBs on at most ``cluster`` CTAs. Every CTA stages the fixed words;
+    a resident slice adds its whole layout at an odd stride, and the
+    streaming side keeps the layout in the device-memory scratch, whose
+    nodes the warps walk there, so a node of any size plans
+    (csrc/preempt_solve.cu dynamic_smem_bytes). Every CTA runs
+    ``MAX_THREADS`` threads: its warps build the keys, one node each,
+    whatever the slice's length. Raises KernelError above ``MAX_DIMS``
+    dims or ``MAX_VICTIMS`` victim slots, the kernel's widths."""
     if r > MAX_DIMS or v > MAX_VICTIMS:
         raise KernelError(
             f"K3 takes at most {MAX_DIMS} resource dims and {MAX_VICTIMS} "
             f"victim slots, got {r} and {v}"
         )
-    words = node_words(r, v, p)
     return plan_launch(
-        n, cluster, node_bytes=4 * words,
-        fixed_bytes=4 * (fixed_words(r) + words), static_bytes=static_bytes,
-        min_threads=MAX_THREADS,
+        n, cluster, node_bytes=4 * node_words(r, v, p),
+        fixed_bytes=4 * fixed_words(r), static_bytes=static_bytes,
+        min_threads=MAX_THREADS, odd_stride=True,
     )
 
 

@@ -331,17 +331,57 @@ def _device_pick(feasible, victims, victims_viol, prio, start_rel):
     return torch.where(feasible.any(), pick, -1).to(i32)
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap, as int32 adds wrap."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
 def _reprieve(alloc, state, req, sel_mask, pod_req):
     """One reprieve pass in sorted order: re-add each selected victim and
-    keep it while the pod still fits. Returns (state, victims [N, V])."""
-    taken = []
-    for vi in range(req.shape[1]):
-        sel = sel_mask[:, vi]
-        cand_state = state + req[:, vi, :] * sel[:, None].to(torch.int32)
-        keep = _fits(alloc - cand_state, pod_req) & sel
-        state = torch.where(keep[:, None], cand_state, state)
-        taken.append(sel & ~keep)
-    return state, torch.stack(taken, dim=1)
+    keep it while the pod still fits. Returns (state, victims [N, V]).
+
+    Equal to the walk one victim at a time, taken a run at a time: from
+    each node's first undecided victim, the selected victims whose prefix
+    sums still fit are kept (the first that does not is the run's end);
+    from there, each selected victim that does not fit alone on the new
+    state is taken, up to the first that does. A node with k such
+    alternations needs k steps of node-parallel prefix sums, not V; the
+    sums are int64, wrapped to int32 as the walk's adds wrap."""
+    n, v, r = req.shape
+    dev = req.device
+    taken = torch.zeros((n, v), dtype=torch.bool, device=dev)
+    if v == 0 or n == 0:
+        return state, taken
+    idx = torch.arange(v, device=dev)[None, :]
+    contrib = req.to(torch.int64) * sel_mask[:, :, None]
+    base = (alloc.to(torch.int64) - state.to(torch.int64))[:, None, :]
+
+    def fits(used):  # [N, V, R] int64 added to the state -> [N, V]
+        return _fits(_wrap32(base - used).reshape(n * v, r),
+                     pod_req).reshape(n, v)
+
+    pos = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+    added = torch.zeros((n, 1, r), dtype=torch.int64, device=dev)
+    while True:
+        ahead = sel_mask & (idx >= pos)
+        if not bool(ahead.any()):
+            break
+        # the keep run: prefix sums from pos
+        prefix = torch.cumsum(contrib * (idx >= pos)[:, :, None], dim=1)
+        fail = ahead & ~fits(added + prefix)
+        end = torch.where(fail.any(dim=1, keepdim=True),
+                          fail.to(torch.int8).argmax(dim=1, keepdim=True), v)
+        kept = prefix.gather(
+            1, (end - 1).clamp(min=0)[:, :, None].expand(n, 1, r)
+        ) * (end > 0)[:, :, None]
+        added = added + kept
+        # the taken run: each victim alone on the new state
+        back = sel_mask & (idx >= end) & fits(added + contrib)
+        nxt = torch.where(back.any(dim=1, keepdim=True),
+                          back.to(torch.int8).argmax(dim=1, keepdim=True), v)
+        taken |= sel_mask & (idx >= end) & (idx < nxt)
+        pos = nxt
+    return _wrap32(state.to(torch.int64) + added[:, 0, :]), taken
 
 
 def _pdb_violating(eligible, pdb_match, pdb_allowed):

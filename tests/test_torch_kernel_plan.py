@@ -10,7 +10,8 @@ hard-spread minimum, csrc/shard_candidate.cu's batch combine (CTA keys,
 shard candidates, the device's winner) and csrc/preempt_solve.cu's
 packed pick key, its PDB spending and its sliced minimum with only the
 chosen node's owner rescanning, and are held against the obvious
-computation.
+computation; so is K3's plain version's reprieve, taken a run at a time,
+against the walk one victim at a time.
 """
 
 from __future__ import annotations
@@ -417,6 +418,24 @@ def test_k3_refuses_shapes_past_its_limits(r, v, message):
         pk.plan_for(5000, r, v, 0, 16, STATIC["k3"])
 
 
+@pytest.mark.parametrize("n", [8, 5000])
+def test_k3_streams_a_node_larger_than_shared_memory(n):
+    """V = 12,000 at R = 4, no PDB: one node's layout alone is larger
+    than a CTA's shared memory, so the wave streams every node from the
+    device-memory scratch and shared memory holds only the fixed words
+    (csrc/preempt_solve.cu dynamic_smem_bytes)."""
+    r, v, p = 4, 12_000, 0
+    assert 4 * pk.node_words(r, v, p) > SMEM_PER_CTA
+    plan = pk.plan_for(n, r, v, p, 16, STATIC["k3"])
+    assert not plan.resident
+    assert plan.cluster == min(16, -(-n // 32))
+    assert plan.threads == 512
+    assert plan.smem_bytes == -(-4 * pk.fixed_words(r) // 16) * 16
+    assert plan.smem_bytes + STATIC["k3"] <= SMEM_PER_CTA
+    # the largest victim count still plans
+    assert not pk.plan_for(n, r, pk.MAX_VICTIMS, p, 16, STATIC["k3"]).resident
+
+
 def test_k3_plans_at_its_limits():
     plan = pk.plan_for(5000, pk.MAX_DIMS, 16, 0, 16, STATIC["k3"])
     assert plan.cluster == 16 and not plan.resident
@@ -650,6 +669,50 @@ def test_k3_pdb_spending_equals_the_sequential_walk(seed):
         allowed = rng.integers(-1, 4, p)
         assert _pdb_lanes(eligible, match, allowed) == _pdb_sequential(
             eligible, match, allowed)
+
+
+# -- K3's reprieve in its plain version (ops/preemption._reprieve) ----------
+
+def _reprieve_walk(alloc, state, req, sel, pod_req):
+    """The reprieve one victim at a time, as csrc/preempt_solve.cu walks
+    it: re-add each selected victim and keep it while the pod fits."""
+    from kubernetes_tpu_torch.ops.assignment import _fits
+
+    taken = []
+    for vi in range(req.shape[1]):
+        cand = state + req[:, vi, :] * sel[:, vi, None].to(torch.int32)
+        keep = _fits(alloc - cand, pod_req) & sel[:, vi]
+        state = torch.where(keep[:, None], cand, state)
+        taken.append(sel[:, vi] & ~keep)
+    return state, torch.stack(taken, dim=1)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_k3_plain_reprieve_runs_equal_the_walk(seed):
+    """The plain version takes the reprieve a run at a time (kept runs by
+    prefix sums, taken runs by single fits): the walk's victims and
+    state, on small and wrapping int32 values, negative requests, scalar
+    dims and all-zero pods."""
+    from kubernetes_tpu_torch.ops.preemption import _reprieve
+
+    rng = np.random.default_rng(seed)
+    for trial in range(250):
+        n, v, r = (int(rng.integers(1, 7)), int(rng.integers(1, 40)),
+                   int(rng.integers(4, 7)))
+        hi = INT_MAX if trial % 5 == 0 else 50
+        lo = -hi if trial % 5 == 0 or trial % 7 == 0 else 0
+        alloc = rng.integers(lo, hi, (n, r)).astype(np.int32)
+        state = rng.integers(lo, hi, (n, r)).astype(np.int32)
+        req = rng.integers(lo, hi // 4 + 2, (n, v, r)).astype(np.int32)
+        sel = rng.random((n, v)) < rng.random()
+        pod = rng.integers(0, hi // 3 + 2, r).astype(np.int32)
+        if trial % 3 == 0:
+            pod[:3] = 0
+        if trial % 11 == 0:
+            pod[4:] = 0
+        args = [torch.from_numpy(a) for a in (alloc, state, req, sel, pod)]
+        got, want = _reprieve(*args), _reprieve_walk(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # -- K3's sliced minimum: only the chosen node's owner rescans --------------

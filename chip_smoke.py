@@ -97,7 +97,12 @@ line is printed only when every phase passed):
    pipeline's guard: at most one full state upload and no carry
    divergence. Prints pods/s, p50/p99 pod-to-bind, the per-stage seconds
    and the pipeline's counters (speculative launches, rewinds by reason,
-   divergences, uploads, pods drained twice into one batch).
+   divergences, uploads, pods drained twice into one batch). Then
+   SchedulingBasic/500 (performance-config.yaml:19-23: 500 nodes, 500
+   init and 1,000 measured pods of 250m/512Mi created one by one,
+   max_batch 1,024) on a fresh stack, as the ``gang`` rows are run and
+   checked, its placements also equal to the numpy host greedy chained
+   over its solves.
 6. ``constrained_bursts``: the five 5,000-node constrained rows of the
    perf matrix (PodTopologySpread, PodAntiAffinity, PodAffinity,
    PreferredPodAffinity, ServiceSpread), each on a fresh stack through
@@ -316,12 +321,43 @@ line is printed only when every phase passed):
    solves, and no fallback beyond the pods the admission routes to the
    sequential path. Prints pods/s, p50/p99 create-to-bind, K1 and K2
    launches, R, and the pods sent host-only by reason.
-17. ``kernels``: every ported kernel with its launches on the main path,
+17. ``gang``: BASELINE config #3, GangScheduling/500 (performance-
+   config.yaml:197-202: 500 nodes, 1,000 pods of 100m/128Mi in 20
+   PodGroups of 50, min 50) and GangContention/500 (:282-292: 500 nodes
+   of 4 CPU / 8Gi / 4 pods, 4,000 pods of 1 CPU / 2Gi in 40 groups of
+   100, capacity for exactly 20; passing at 45% bound once binds go
+   quiet, the window ending at the last bind), each on a fresh stack
+   built as benchmarks/runner.py builds it (a PodGroup per gang, the
+   measured pods created one by one, max_batch 1,024, so gangs split
+   across batches and wait at Permit). Asserts the row's gate, every
+   group bound whole or not at all, GangContention's quorum re-solve
+   (``gang_resolves`` >= 1), no node over capacity, no pod left waiting
+   at Permit, the host cache's per-node requests and the resident
+   carry's CPU and pod columns equal to the bound pods' (a masked gang
+   reserves nothing), a clean carry audit, every solve on "cuda" with K1's
+   launches equal to the recorded solves (re-solves included), each
+   solve equal to its CPU replay from its pieces and handed carry, each
+   re-solve handed exactly the state its first attempt was (the carry
+   rewind), GangScheduling's placements equal to the numpy host greedy
+   chained over its solves, and no fallback counter moving.
+18. ``gpu``: BASELINE config #4, GPUBinPack/500 (:205-212: 500 nodes of
+   8 nvidia.com/gpu, 1,000 pods of one GPU, scoring weights least 0,
+   balanced 0, most 1; K1 at R=5, chained host replay; the nodes used
+   recorded), GPUBinPackNUMA/500 (:526-538: GPU groups 4_4, 1,000 pods
+   of two GPUs aligned to one group: every pod takes the sequential
+   path by admission, ``pods_fallback`` moving by exactly that count)
+   and, beside them, a mixed correctness case (the NUMA cluster, 1,000
+   pods alternating aligned 2-GPU and unaligned 1-GPU, max_batch 64, so
+   K1 solves and host binds interleave). The ``gang`` checks, plus no
+   node over its 8 GPUs and no NUMA group holding more aligned GPUs
+   than its size.
+19. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
    adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
-   ``containment``, ``pipeline`` and ``constrained_families``, K2 in
+   ``containment``, ``pipeline``, ``constrained_families``,
+   SchedulingBasic/500, ``gang`` and ``gpu``, K2 in
    ``constrained_families``, K3 in ``lifecycle`` and ``tenancy``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -5963,6 +5999,425 @@ def constrained_families(gk, ck, device=None, rows=FAMILY_ROWS):
     return totals
 
 
+# -- phases 17-18: the gang and GPU rows (BASELINE configs #3 and #4), and
+# SchedulingBasic/500 beside the burst -------------------------------------
+
+# benchmarks/config/performance-config.yaml rows with the defaults of :9-15
+# (32 CPU, 64Gi, 110 pods, 10 zones, max_batch 1,024, timeout 420 s), built
+# as benchmarks/runner.py builds them: pods by _build_pod (:139-212; the
+# scalar requests and the NUMA annotation), nodes with their scalars and
+# NUMA groups (:800-817), a PodGroup per gang (:908-918), the scoring
+# weights as the solver config (:653), init pods and then measured pods
+# created one by one (:1031-1044, :1299-1302; a gang label by index,
+# :1100-1102), a capacity-starved row passing at its min_bound_fraction
+# once the binds go quiet, its window ending at the last bind (:1303-1312,
+# :1424-1432).
+GPU_RESOURCE = "nvidia.com/gpu"
+BIN_PACK = dict(most_allocated_weight=1, least_allocated_weight=0,
+                balanced_allocation_weight=0)
+NUMA_NODE = dict(scalars={GPU_RESOURCE: 8}, numa_groups="4_4")
+NUMA_POD = dict(cpu="100m", memory="128Mi", scalars={GPU_RESOURCE: 2},
+                numa_aligned=GPU_RESOURCE)
+SCHEDULING_BASIC_500 = dict(
+    name="SchedulingBasic/500", phase="burst", source=":19-23", nodes=500,
+    init_pods=500, measured=1000, pods=[dict(cpu="250m", memory="512Mi")],
+    chain=True)
+GANG_ROWS = [
+    dict(name="GangScheduling/500", phase="gang", source=":197-202",
+         nodes=500, measured=1000, pods=[dict(cpu="100m", memory="128Mi")],
+         gang=dict(group_size=50, min_member=50), chain=True),
+    dict(name="GangContention/500", phase="gang", source=":282-292",
+         nodes=500, node=dict(cpu="4", memory="8Gi", pods=4), measured=4000,
+         pods=[dict(cpu="1000m", memory="2Gi")],
+         gang=dict(group_size=100, min_member=100), min_bound_fraction=0.45,
+         timeout_s=300),
+]
+GPU_ROWS = [
+    dict(name="GPUBinPack/500", phase="gpu", source=":205-212", nodes=500,
+         node=dict(scalars={GPU_RESOURCE: 8}), measured=1000,
+         pods=[dict(cpu="100m", memory="128Mi", scalars={GPU_RESOURCE: 1})],
+         solver=BIN_PACK, chain=True),
+    dict(name="GPUBinPackNUMA/500", phase="gpu", source=":526-538",
+         nodes=500, node=NUMA_NODE, measured=1000, pods=[NUMA_POD],
+         solver=BIN_PACK, timeout_s=900),
+    # a correctness case beside the rows, replacing none: the NUMA cluster
+    # with aligned and unaligned pods alternating in small batches, so K1
+    # solves and the sequential path's host binds interleave
+    dict(name="GPUMixedNUMA/500", phase="gpu", source=":526-538, mixed",
+         nodes=500, node=NUMA_NODE, measured=1000, max_batch=64,
+         pods=[NUMA_POD,
+               dict(cpu="100m", memory="128Mi", scalars={GPU_RESOURCE: 1})],
+         solver=BIN_PACK),
+]
+
+
+def matrix_pod(make_pod, name, spec):
+    """One pod as ``benchmarks/runner.py _build_pod`` builds it: cpu and
+    memory, its scalar requests, the NUMA opt-in annotation."""
+    from kubernetes_tpu_torch.plugins.numa import ALIGNED_ANNOTATION
+
+    w = make_pod(name).container(
+        cpu=spec["cpu"], memory=spec["memory"],
+        **{k.replace("/", "__").replace(".", "_"): v
+           for k, v in (spec.get("scalars") or {}).items()},
+    )
+    if spec.get("numa_aligned"):
+        w.annotation(ALIGNED_ANNOTATION, spec["numa_aligned"])
+    return w.obj()
+
+
+def wait_quiet(watch, need, timeout, settle=2.0):
+    """``benchmarks/runner.py``'s wait_fraction: at least ``need`` bound
+    and no new bind for ``settle`` seconds."""
+    deadline = time.time() + timeout
+    last, quiet_since = -1, time.time()
+    while time.time() < deadline:
+        count = len(watch.bind_times)
+        if count != last:
+            last, quiet_since = count, time.time()
+        elif count >= need and time.time() - quiet_since >= settle:
+            return True
+        time.sleep(0.05)
+    return last >= need
+
+
+def settled_audit(sched):
+    """One carry audit with nothing in flight, retried through "busy" and
+    "raced" for up to 10 s; "clean" or "idle" (nothing resident) pass."""
+    for _ in range(200):
+        verdict = sched.audit_carry()
+        if verdict not in ("busy", "raced"):
+            return verdict
+        time.sleep(0.05)
+    return verdict
+
+
+def node_usage(pods):
+    """Per node, the sums of its bound pods' requests: cpu (milli),
+    memory (bytes), pods, GPUs, and the aligned GPUs per NUMA group."""
+    from kubernetes_tpu_torch.api.types import pod_resource_requests
+    from kubernetes_tpu_torch.plugins.numa import ASSIGNED_ANNOTATION
+
+    use = {}
+    for p in pods:
+        node = p.spec.node_name
+        if not node:
+            continue
+        req = pod_resource_requests(p)
+        u = use.setdefault(node, dict(cpu=0, memory=0, pods=0, gpu=0,
+                                      groups={}))
+        u["cpu"] += int(req.get("cpu", 0))
+        u["memory"] += int(req.get("memory", 0))
+        u["pods"] += 1
+        u["gpu"] += int(req.get(GPU_RESOURCE, 0))
+        g = p.metadata.annotations.get(ASSIGNED_ANNOTATION)
+        if g is not None:
+            u["groups"][g] = (u["groups"].get(g, 0)
+                              + int(req.get(GPU_RESOURCE, 0)))
+    return use
+
+
+def matrix_row(row, gk, device=None):
+    """One gang, GPU or basic row on a fresh stack through the entry
+    points, as ``benchmarks/runner.py`` builds it. Asserts the row's
+    gate (every measured pod bound, or the row's min_bound_fraction), no
+    node over its capacity or its GPUs, no NUMA group over its size,
+    every gang whole or absent, every device solve on the card and equal
+    to its CPU replay from its pieces and handed carry (re-solves
+    included; K1's launches equal to the solves), a gang re-solve handed
+    exactly the state its first attempt was (the carry rewind), the
+    carry auditing clean at the end with the host cache and the resident
+    carry both holding exactly the bound pods (a masked gang reserves
+    nothing), and no fallback beyond the pods the admission sends to the
+    sequential path."""
+    import copy
+    from collections import Counter
+
+    from kubernetes_tpu_torch.api.types import POD_GROUP_LABEL, ObjectMeta, PodGroup
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.ops.assignment import GreedyConfig
+    from kubernetes_tpu_torch.plugins.numa import GROUPS_LABEL
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    tier = "cuda" if device is None else "torch"  # the CPU is for rehearsal
+    timeout = row.get("timeout_s", 420)
+    t_setup = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    solver = GreedyConfig(**row["solver"]) if row.get("solver") else None
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=row.get("max_batch", MAX_CONSTRAINED_BATCH),
+                          solver_config=solver, device=device)
+    if sched.device.type != ("cuda" if device is None else device):
+        raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    node = row.get("node") or {}
+    cap = dict(cpu=node.get("cpu", "32"), memory=node.get("memory", "64Gi"),
+               pods=node.get("pods", 110))
+    scalars = node.get("scalars") or {}
+    for i in range(row["nodes"]):
+        nw = make_node(f"node-{i}").capacity(
+            **cap, **{k.replace("/", "__").replace(".", "_"): v
+                      for k, v in scalars.items()},
+        ).label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+        if node.get("numa_groups"):
+            nw.label(GROUPS_LABEL, node["numa_groups"])
+        client.create_node(nw.obj())
+    gang = row.get("gang")
+    n = row["measured"]
+    if gang:
+        for g in range(-(-n // gang["group_size"])):
+            server.create(PodGroup(
+                metadata=ObjectMeta(name=f"group-{g}", namespace="default"),
+                min_member=gang["min_member"],
+            ))
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+    sched.warmup()
+    specs = row["pods"]
+    init_names = [f"init-{i}" for i in range(row.get("init_pods", 0))]
+    if init_names:
+        watch = BindWatcher(server, init_names)
+        for nm in init_names:
+            client.create_pod(matrix_pod(make_pod, nm, specs[0]))
+    loop = sched.start()
+    if init_names:
+        if not watch.wait(timeout):
+            raise AssertionError(f"{name}: the init pods did not all bind")
+        watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    setup_s = time.perf_counter() - t_setup
+
+    measured = []
+    for i in range(n):
+        p = matrix_pod(make_pod, f"measure-{i}", specs[i % len(specs)])
+        if gang:
+            p.metadata.labels[POD_GROUP_LABEL] = (
+                f"group-{i // gang['group_size']}")
+        measured.append(p)
+    names = [p.metadata.name for p in measured]
+    # the admission's verdict on each measured pod: device, or the
+    # sequential path and why
+    host_only = Counter(
+        adm.reason for adm in
+        (sched.classify_pod(copy.deepcopy(p)) for p in measured)
+        if not adm.device_ok
+    )
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch = sched._dispatch_solve
+    orig_solve = batch_mod.solve_packed
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls
+    )
+    resolves = []  # (the first attempt's dispatch, the re-solve's)
+
+    def dispatch(solver_infos, cycle, **kw):
+        first = dispatched[-1] if kw.get("inactive_uids") else None
+        p = recording_dispatch(solver_infos, cycle, **kw)
+        if first is not None and p is not None:
+            resolves.append((first, p))
+        return p
+
+    tiers0 = dict(sched.ladder.solves_by_tier)
+    counters0 = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    resolves0, uploads0 = sched.gang_resolves, sched.state_uploads
+    stages0 = dict(sched.stage_seconds)
+    watch = BindWatcher(server, names)
+    create_times = {}
+    sched._dispatch_solve = dispatch
+    batch_mod.solve_packed = recording_solve
+    gk.launches = 0  # the count of THIS row's measured run
+    try:
+        start = time.perf_counter()
+        for p in measured:
+            create_times[p.metadata.name] = time.perf_counter()
+            client.create_pod(p)
+        frac = row.get("min_bound_fraction", 1.0)
+        if frac < 1.0:
+            completed = wait_quiet(watch, int(frac * n), timeout)
+        else:
+            completed = watch.wait(timeout)
+        elapsed = time.perf_counter() - start
+        if frac < 1.0 and watch.bind_times:
+            # the window ends at the last bind, not at the quiet check
+            elapsed = max(watch.bind_times.values()) - start
+        sched.wait_for_inflight_binds(timeout=60)
+        # a capacity-starved row keeps retrying its masked gangs: stop
+        # the loop before the recorders come off, so every dispatch
+        # recorded has its solve
+        sched.stop()
+        loop.join(timeout=60)
+        k1 = gk.launches
+    finally:
+        watch.stop()
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+    if loop.is_alive():
+        raise AssertionError(f"{name}: the scheduling loop did not stop")
+    stages = {
+        k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
+    }
+    tiers = {
+        k: v - tiers0.get(k, 0) for k, v in sched.ladder.solves_by_tier.items()
+    }
+    moved = dict(
+        fallbacks=counter_total(metrics.solver_fallbacks),
+        retries=counter_total(metrics.solve_retries),
+        pods_fallback=sched.pods_fallback,
+        envelope_fallbacks=sched.envelope_fallbacks,
+    )
+    moved = {k: moved[k] - counters0[k] for k in moved}
+    gang_resolves = sched.gang_resolves - resolves0
+    uploads = sched.state_uploads - uploads0
+    audit = settled_audit(sched)
+    # raises unless the carry equals the shadow (none when no pod of the
+    # row took the device path)
+    state = shadow_state(sched) if sched._dev.req_shadow is not None else None
+    pods, _ = client.list_pods()
+    cache_use = {
+        nm: (ni.requested.milli_cpu, ni.requested.memory, len(ni.pods),
+             ni.requested.scalar.get(GPU_RESOURCE, 0))
+        for nm, ni in sched.cache._nodes.items()
+    }
+    waiting = sum(len(fw.waiting_pods) for fw in sched.profiles.values())
+    informers.stop()
+
+    placed = {p.metadata.name: p.spec.node_name for p in pods}
+    bound = sum(1 for nm in names if placed.get(nm))
+    need = int(row.get("min_bound_fraction", 1.0) * n)
+    if not completed or bound < need:
+        raise AssertionError(f"{name}: {bound}/{n} pods bound, {need} needed")
+    use = node_usage(pods)
+    node_gpus = scalars.get(GPU_RESOURCE, 0)
+    groups = [int(x) for x in node.get("numa_groups", "").split("_") if x]
+    cpu_m = int(float(cap["cpu"]) * 1000)
+    mem_b = int(cap["memory"][:-2]) << 30
+    for nm, u in use.items():
+        if (u["cpu"] > cpu_m or u["memory"] > mem_b or u["pods"] > cap["pods"]
+                or u["gpu"] > node_gpus):
+            raise AssertionError(f"{name}: {nm} over its capacity: {u}")
+        if any(v > groups[int(g)] for g, v in u["groups"].items()):
+            raise AssertionError(f"{name}: a NUMA group of {nm} over its "
+                                 f"size: {u['groups']}")
+    # the host cache and the resident carry hold exactly the bound pods
+    for nm, (c, m, k, g) in cache_use.items():
+        u = use.get(nm, dict(cpu=0, memory=0, pods=0, gpu=0))
+        if (c, m, k, g) != (u["cpu"], u["memory"], u["pods"], u["gpu"]):
+            raise AssertionError(
+                f"{name}: the cache holds {(c, m, k, g)} on {nm}, its bound "
+                f"pods {u}")
+    if state is not None:
+        # requested CPU (column 0) and pods (column 3) of every row
+        want_cols = (sum(u["cpu"] for u in use.values()),
+                     sum(u["pods"] for u in use.values()))
+        got_cols = (int(state[2][:, 0].sum()), int(state[2][:, 3].sum()))
+        if got_cols != want_cols:
+            raise AssertionError(
+                f"{name}: the carry holds (CPU, pods) {got_cols}, the bound "
+                f"pods {want_cols}")
+    if waiting or audit not in ("clean", "idle"):
+        raise AssertionError(
+            f"{name}: {waiting} pods wait at Permit, the audit said {audit!r}")
+    group_sizes = Counter()
+    if gang:
+        for i, nm in enumerate(names):
+            if placed.get(nm):
+                group_sizes[i // gang["group_size"]] += 1
+        partial = {g: c for g, c in group_sizes.items()
+                   if c != gang["group_size"]}
+        if partial:
+            raise AssertionError(f"{name}: groups bound in part: {partial}")
+        if row.get("min_bound_fraction", 1.0) < 1.0 and gang_resolves < 1:
+            raise AssertionError(f"{name}: no gang was re-solved")
+    if any(p["tier"] != tier for p in dispatched):
+        raise AssertionError(f"{name}: a dispatch solved off the card")
+    if dispatched and set(k for k, v in tiers.items() if v) != {tier}:
+        raise AssertionError(f"{name}: solves off the {tier} tier: {tiers}")
+    if tier == "cuda" and k1 != len(calls):
+        raise AssertionError(f"{name}: K1 {k1} launches for {len(calls)} "
+                             f"solves")
+    sequential = sum(host_only.values())
+    if moved["pods_fallback"] != sequential or any(
+        v for k, v in moved.items() if k != "pods_fallback"
+    ):
+        raise AssertionError(
+            f"{name}: a fallback counter moved: {moved}; the admission sent "
+            f"{sequential} pods to the sequential path"
+        )
+    for first, again in resolves:
+        a = next(c for c in calls if c["out"][0] is first["assignments_dev"])
+        b = next(c for c in calls if c["out"][0] is again["assignments_dev"])
+        if not all(np.array_equal(batch_mod._to_host(x), batch_mod._to_host(y))
+                   for x, y in zip(a["state"], b["state"])):
+            raise AssertionError(
+                f"{name}: a gang re-solve was handed another state than its "
+                "first attempt (the carry rewind is not exact)")
+    t_replay = time.perf_counter()
+    want = replay_solves(calls, dispatched)
+    if row.get("chain") and calls:
+        # the numpy host greedy chained over every solve from the state
+        # the first one was handed
+        pieces = dict(calls[0]["pieces"])
+        state0 = tuple(
+            np.asarray(pieces[k]) if k in pieces else batch_mod._to_host(t)
+            for k, t in zip(("alloc", "valid", "req_state", "nzr_state"),
+                            calls[0]["state"])
+        )
+        chained = host_replay(dispatched, state0, sched.solver_config)
+        if any(chained.get(nm) != placed.get(nm) for nm in names):
+            raise AssertionError(f"{name}: placements differ from the host "
+                                 "greedy chained over the solves")
+    replay_s = time.perf_counter() - t_replay
+    # a device placement stands unless a quorum mask took it back
+    mismatched = [nm for nm in want if nm in create_times and want[nm]
+                  and placed.get(nm) and want[nm] != placed[nm]]
+    if mismatched:
+        raise AssertionError(
+            f"{name}: {len(mismatched)} placements differ from the replay, "
+            f"e.g. {mismatched[:3]}")
+    lat = sorted(watch.bind_times[nm] - create_times[nm]
+                 for nm in names if nm in watch.bind_times)
+    rec = dict(
+        row=name, source=f"performance-config.yaml{row['source']}",
+        nodes=row["nodes"], init_pods=len(init_names), pods=n, bound=bound,
+        seconds=elapsed, pods_per_sec=bound / elapsed,
+        p50_pod_to_bind_s=lat[len(lat) // 2],
+        p99_pod_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
+        batches=len(dispatched), solves=len(calls),
+        r=max((dict(c["pieces"])["req"].shape[1] for c in calls), default=0),
+        greedy_kernel_launches=k1, gang_resolves=gang_resolves,
+        cold_uploads=uploads, groups_whole=len(group_sizes),
+        nodes_used=len(use), host_only=dict(host_only),
+        solves_by_tier=tiers, counters_moved=moved, audit=audit,
+        replay_equal=True, replay_seconds=replay_s, stage_seconds=stages,
+        setup_seconds=setup_s,
+    )
+    emit(row["phase"], **rec)
+    return rec
+
+
+def matrix_rows(phase, gk, rows, device=None):
+    """The ``gang`` or ``gpu`` phase: each row on a fresh stack."""
+    t0 = time.perf_counter()
+    recs = [matrix_row(row, gk, device) for row in rows]
+    launches = sum(r["greedy_kernel_launches"] for r in recs)
+    emit(f"{phase}_phase", rows=len(recs), seconds=time.perf_counter() - t0,
+         greedy_kernel_launches=launches)
+    return dict(greedy_kernel_launches=launches)
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -6015,6 +6470,7 @@ def main():
     p_timing, p_max_err = preempt_kernel_vs_twin(pk, pre_mod)
     _, s_timing, s_max_err = shard_kernel_vs_twin(sk)
     rec = burst(gk)
+    basic = matrix_row(SCHEDULING_BASIC_500, gk)
     rows = constrained_bursts(ck)
     pre = preemption_burst(pk, gk)
     mesh = NodeMesh(["cuda:0"] * MESH_SHARDS)
@@ -6028,6 +6484,8 @@ def main():
     cont = containment(gk)
     pipe = pipeline(gk)
     fam = constrained_families(gk, ck)
+    gang = matrix_rows("gang", gk, GANG_ROWS)
+    gpu = matrix_rows("gpu", gk, GPU_ROWS)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -6039,7 +6497,10 @@ def main():
         + ten["greedy_kernel_launches"]
         + cont["greedy_kernel_launches"]
         + pipe["greedy_kernel_launches"]
-        + fam["greedy_kernel_launches"],
+        + fam["greedy_kernel_launches"]
+        + basic["greedy_kernel_launches"]
+        + gang["greedy_kernel_launches"]
+        + gpu["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],

@@ -351,13 +351,49 @@ line is printed only when every phase passed):
    K1 solves and host binds interleave). The ``gang`` checks, plus no
    node over its 8 GPUs and no NUMA group holding more aligned GPUs
    than its size.
-19. ``kernels``: every ported kernel with its launches on the main path,
+19. ``succession``: scheduler succession through the operator's entry
+   points on the card. (a) HAFailover/5000: two ``SchedulerApp``s under
+   leader election (leases 1 s, renew deadline 2 s, retry 0.1 s as
+   bench.py:206-211; commit fencing and the sweeper on) over one
+   apiserver with SchedulingBasic's cluster and pods (max_batch 1,024,
+   the 10,000 pods in chunks of 256 every 0.1 s so the burst outlasts a
+   lapsed lease); the leader's renews fail once a third of the pods are
+   bound while a K1 batch of it is in flight. Asserts the standby takes
+   over, the deposed leader abdicates, no card fault on either stack,
+   every pod bound exactly once over the whole watch history, the
+   in-flight batch fenced or committed under a live lease (printed),
+   the successor's first dispatch its one cold upload, no K1 build after
+   warmup, every K1 solve of both stacks equal to its CPU replay, no node
+   over capacity and, after one small settle wave, the successor's carry
+   auditing clean with its host cache and carry holding exactly the
+   bound pods. (b) HAChaos/2000: bench.py:164-309's HA bench as written
+   (``new_scheduler`` + ``LeaderElector`` stacks, the electors isolated
+   from the global ``ha-chaos`` profile at fault seed 0, the kill a third
+   of the way in): the same checks, and no batch completion failing
+   under the injected faults; prints the faults fired per point. (c)
+   CrashRestart/5000: a ``SchedulerApp`` binds the warm pods and 2,048
+   measured pods, then crashes between assume and bind on its next K1
+   batch (one fire); a fresh ``SchedulerApp`` in the same process
+   recovers on startup: ``adopted`` equal to the pods bound at the API,
+   ``requeued`` to the pods pending there (> 0), no bulk bind sent by the
+   dead incarnation after its crash, the successor's first dispatch a
+   cold upload with no K1 rebuild, every pod bound once, every solve
+   replayed, the audit clean; prints the recovery milliseconds (start()
+   to the first K1 dispatch). (d) DrainedTwice/8: a pod drained twice
+   into one batch; the next dispatch brings the carry back to the host
+   cache. (e) the CLI: ``python -m kubernetes_tpu_torch --leader-elect
+   --healthz-bind-address 127.0.0.1:0`` with manifests of
+   SchedulingBasic/500's 500 nodes and 1,000 pods as a subprocess:
+   /healthz answers ok, /metrics counts 1,000 scheduled attempts, device
+   batches and no solver fallback, /debug/comparer finds nothing, and
+   SIGTERM ends it with code 0 within 30 s and no traceback.
+20. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
    adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
    ``containment``, ``pipeline``, ``constrained_families``,
-   SchedulingBasic/500, ``gang`` and ``gpu``, K2 in
+   SchedulingBasic/500, ``gang``, ``gpu`` and ``succession``, K2 in
    ``constrained_families``, K3 in ``lifecycle`` and ``tenancy``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -6418,6 +6454,995 @@ def matrix_rows(phase, gk, rows, device=None):
     return dict(greedy_kernel_launches=launches)
 
 
+# -- phase 19: scheduler succession -------------------------------------------
+
+# bench.py:206-211: the HA bench's leases (1 s, renew deadline 2 s, retry
+# 0.1 s); commit fencing and the sweeper on, as SchedulerApp wires them
+HA_CONFIG = {
+    "leaderElection": {"leaderElect": True, "leaseDuration": 1.0,
+                       "renewDeadline": 2.0, "retryPeriod": 0.1},
+    "resilience": {"commitFencing": True, "sweeperEnabled": True},
+}
+HA_FAILOVER = dict(
+    name="HAFailover/5000",
+    source="bench.py:1195-1289 (cluster, pods), :195, :206-211, :264-272",
+    nodes=N_NODES, warm=MAX_BATCH, pods=N_PODS, max_batch=1024, chunk=256,
+    # a chunk every 0.1 s: the burst (~3.9 s) outlasts the lapse of the
+    # killed leader's 1 s lease, so the standby takes over mid-burst (a
+    # closed burst binds before the lease lapses, and the successor
+    # would never dispatch)
+    chunk_interval=0.1,
+)
+HA_CHAOS = dict(name="HAChaos/2000", source="bench.py:164-309", nodes=2000,
+                pods=4000, max_batch=1024, chunk=256, fault_seed=0)
+CRASH_RESTART = dict(
+    name="CrashRestart/5000",
+    source="tests/test_crash_recovery.py:70-149 at bench.py:1195-1289's size",
+    nodes=N_NODES, warm=MAX_BATCH, wave1=2048, pods=N_PODS, max_batch=1024,
+    chunk=256,
+)
+CLI_ROW = dict(name="CLI/500", source="performance-config.yaml:19-23",
+               nodes=500, pods=1000)
+SUCCESSION_WAIT_S = 180
+
+
+def no_card_fault(name, scheds):
+    """Fail at once when a batch completion of any of ``scheds`` failed
+    on the card."""
+    for i, s in enumerate(scheds):
+        if s.card_fault is not None:
+            raise AssertionError(f"{name}: stack {i} failed on the card: "
+                                 f"{s.card_fault!r}") from s.card_fault
+
+
+def wait_until(name, scheds, cond, what, timeout=SUCCESSION_WAIT_S,
+               step=0.02):
+    """Poll ``cond`` until it holds; fails on a card fault of ``scheds`` or
+    at the timeout."""
+    deadline = time.time() + timeout
+    while not cond():
+        no_card_fault(name, scheds)
+        if time.time() > deadline:
+            raise AssertionError(f"{name}: timed out waiting for {what}")
+        time.sleep(step)
+
+
+def bind_warm(name, server, scheds, client, n):
+    """SchedulingBasic's warm pods (100m/128Mi) created in chunks of 256;
+    waits until every one is bound and its bind landed."""
+    from kubernetes_tpu_torch.testing import make_pod
+
+    warm = [make_pod(f"warm-{i}").container(cpu="100m", memory="128Mi")
+            .obj() for i in range(n)]
+    watch = BindWatcher(server, [p.metadata.name for p in warm])
+    try:
+        for lo in range(0, n, 256):
+            client.create_pods_bulk(warm[lo:lo + 256])
+        wait_until(name, scheds, lambda: watch._outstanding <= 0,
+                   "the warm pods")
+    finally:
+        watch.stop()
+    for s in scheds:
+        s.wait_for_inflight_binds(timeout=60)
+
+
+def bind_transitions(server):
+    """Per pod name, its unbound -> bound transitions over the whole watch
+    history (the reference tests' exactly-once ground truth)."""
+    w = server.watch("Pod", since_rv=0)
+    node, out = {}, {}
+    for ev in w.pending():
+        name = ev.object.metadata.name
+        if ev.type == "DELETED":
+            node.pop(name, None)
+            continue
+        cur = ev.object.spec.node_name or ""
+        if not node.get(name) and cur:
+            out[name] = out.get(name, 0) + 1
+        node[name] = cur
+    w.stop()
+    return out
+
+
+def exactly_once(name, server, names):
+    """Every pod of ``names`` bound exactly once over the whole history, no
+    incarnation moved or bound twice."""
+    binds = bind_transitions(server)
+    missing = [n for n in names if binds.get(n, 0) != 1]
+    if missing:
+        raise AssertionError(
+            f"{name}: {len(missing)} pods not bound exactly once, e.g. "
+            f"{[(n, binds.get(n, 0)) for n in missing[:3]]}")
+    if double_binds(server, 0):
+        raise AssertionError(f"{name}: an incarnation was bound twice")
+
+
+def holds_bound_pods(name, sched, client):
+    """The stack's carry audits clean and its host cache and resident carry
+    hold exactly the bound pods (call with nothing in flight)."""
+    from kubernetes_tpu_torch.api.types import pod_resource_requests
+
+    audit = settled_audit(sched)
+    state = shadow_state(sched)  # raises unless the carry equals the shadow
+    use = {}
+    for p in client.list_pods()[0]:
+        if p.spec.node_name:
+            req = pod_resource_requests(p)
+            u = use.setdefault(p.spec.node_name, [0, 0, 0])
+            u[0] += int(req.get("cpu", 0))
+            u[1] += int(req.get("memory", 0))
+            u[2] += 1
+    for nm, ni in sched.cache._nodes.items():
+        got = [ni.requested.milli_cpu, ni.requested.memory, len(ni.pods)]
+        if got != use.get(nm, [0, 0, 0]):
+            raise AssertionError(f"{name}: the cache holds {got} on {nm}, its "
+                                 f"bound pods {use.get(nm)}")
+    want = (sum(u[0] for u in use.values()), sum(u[2] for u in use.values()))
+    got = (int(state[2][:, 0].sum()), int(state[2][:, 3].sum()))
+    if audit != "clean" or got != want:
+        raise AssertionError(f"{name}: audit {audit!r}; the carry holds (CPU, "
+                             f"pods) {got}, the bound pods {want}")
+    return audit
+
+
+def carry_gap(sched, client):
+    """Pods (the carry's pod column) the successor's resident state holds
+    beyond the pods bound at the API; None when nothing is resident."""
+    with sched._shadow_lock:
+        req = sched._dev.req_shadow
+        held = None if req is None else int(req[:, 3].sum())
+    if held is None:
+        return None
+    return held - sum(1 for p in client.list_pods()[0] if p.spec.node_name)
+
+
+def conflict_ledger(sched):
+    """A stack's absorbed bind conflicts, its carry divergences."""
+    return dict(absorbed=sched.bind_conflicts_absorbed,
+                requeued=sched.conflict_requeues,
+                stale=sched.conflict_stale_binds,
+                carry_divergences=sched.carry_divergences)
+
+
+def settle_wave(name, server, client, sched, n=64):
+    """One more small wave once the takeover has settled: its dispatch
+    negotiates the successor's carry against its host cache. A commit the
+    handover absorbed as a bind conflict (the deposed leader bound the
+    pod first, under its live lease) leaves the pod in the successor's
+    carry and shadow until then. Returns the wave's pod names and the
+    carry's gap before it."""
+    from kubernetes_tpu_torch.testing import make_pod
+
+    gap = carry_gap(sched, client)
+    pods = [make_pod(f"settle-{i}").container(cpu="250m", memory="512Mi")
+            .obj() for i in range(n)]
+    names = [p.metadata.name for p in pods]
+    watch = BindWatcher(server, names)
+    try:
+        client.create_pods_bulk(pods)
+        if not watch.wait(60):
+            raise AssertionError(f"{name}: the settle wave did not bind")
+    finally:
+        watch.stop()
+    sched.wait_for_inflight_binds(timeout=60)
+    return names, gap
+
+
+class StackRecorder:
+    """Records every dispatch of each stack and every solve of the process
+    (``solve_recorders``), the time of each stack's first dispatch and its
+    state uploads around it."""
+
+    def __init__(self, scheds, batch_mod):
+        self.scheds = scheds
+        self.batch_mod = batch_mod
+        self.dispatched = [[] for _ in scheds]
+        self.calls = []
+        self.first = [None] * len(scheds)  # (time, uploads before, after)
+        self._orig_solve = batch_mod.solve_packed
+        self._orig = [s._dispatch_solve for s in scheds]
+        seen = set()
+        for i, s in enumerate(scheds):
+            rd, rs = solve_recorders(self._orig[i], self._orig_solve,
+                                     self.dispatched[i], seen, self.calls)
+
+            def dispatch(*a, i=i, s=s, rd=rd, **kw):
+                before = s.state_uploads
+                p = rd(*a, **kw)
+                if p is not None and self.first[i] is None:
+                    self.first[i] = (time.perf_counter(), before,
+                                     s.state_uploads)
+                return p
+
+            s._dispatch_solve = dispatch
+        batch_mod.solve_packed = rs
+
+    def close(self):
+        self.batch_mod.solve_packed = self._orig_solve
+        for s, d in zip(self.scheds, self._orig):
+            s._dispatch_solve = d
+
+    def per_stack(self, name, tier, on_card, k1_launches):
+        """K1 solves per stack (each solve belongs to the one stack whose
+        dispatch holds its answer); checks the tiers and the launch count,
+        and replays every solve on the CPU."""
+        mine = [{id(p["assignments_dev"]) for p in d} for d in self.dispatched]
+        counts = [0] * len(self.scheds)
+        for c in self.calls:
+            owners = [i for i, m in enumerate(mine) if id(c["out"][0]) in m]
+            if len(owners) != 1 or c["mode"] != "greedy":
+                raise AssertionError(f"{name}: a solve of no single stack")
+            counts[owners[0]] += 1
+        if any(p["tier"] != tier for d in self.dispatched for p in d):
+            raise AssertionError(f"{name}: a dispatch solved off the card")
+        if on_card and k1_launches != len(self.calls):
+            raise AssertionError(f"{name}: {k1_launches} K1 launches for "
+                                 f"{len(self.calls)} solves")
+        t0 = time.perf_counter()
+        for d in self.dispatched:
+            replay_solves(self.calls, d)
+        return counts, time.perf_counter() - t0
+
+
+def run_recorder(app, threads, i):
+    """Keep the thread the leader's scheduling loop runs on (the elector
+    starts it) so the loop can be stopped and joined."""
+    orig_run = app.sched.run
+
+    def run():
+        threads[i] = threading.current_thread()
+        return orig_run()
+
+    app.sched.run = run
+
+
+class CommitFates:
+    """Each bulk commit of a scheduler: its pods and the fence's verdict
+    (the fencing check and the bulk binding cycle run on one bind
+    thread)."""
+
+    def __init__(self, sched):
+        self.records = []
+        self._local = threading.local()
+        check = sched.fencing_check
+        cycle = sched._bulk_binding_cycle
+
+        def fencing_check():
+            self._local.verdict = v = bool(check())
+            return v
+
+        def bulk(items, *a, **kw):
+            self._local.verdict = None
+            try:
+                return cycle(items, *a, **kw)
+            finally:
+                self.records.append((
+                    {t[2].pod.metadata.name for t in items},
+                    self._local.verdict, time.perf_counter()))
+
+        sched.fencing_check = fencing_check
+        sched._bulk_binding_cycle = bulk
+
+
+def ha_failover(gk, device=None, row=HA_FAILOVER):
+    """HAFailover/5000: two ``SchedulerApp``s under leader election over
+    one apiserver, SchedulingBasic's cluster and pods; the leader is
+    killed (its renews fail) once a third of the pods are bound while a
+    K1 batch of it is in flight."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.app import SchedulerApp
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"  # the CPU is for rehearsal
+    t_setup = time.perf_counter()
+    server = APIServer()
+    apps = [SchedulerApp(config=load_config_from_dict(HA_CONFIG),
+                         server=server, device=device) for _ in range(2)]
+    threads = {}
+    for i, app in enumerate(apps):
+        if (app.sched.device.type == "cuda") != on_card:
+            raise AssertionError(f"{name}: a stack solves on {app.sched.device}")
+        app.sched.max_batch = row["max_batch"]
+        run_recorder(app, threads, i)
+    client = apps[0].client
+    for i in range(row["nodes"]):
+        client.create_node(make_node(f"node-{i}").capacity(
+            cpu="32", memory="64Gi", pods=110).obj())
+    leader, standby = apps
+    rec = watch = creator = None
+    created = threading.Event()
+    try:
+        leader.start()
+        scheds = [a.sched for a in apps]
+
+        def wait_for(*a, **kw):
+            wait_until(name, scheds, *a, **kw)
+
+        wait_for(lambda: leader.elector.is_leader, "the first leader")
+        leader.sched.warmup()
+        standby.start()  # contends for the lease from here on
+        bind_warm(name, server, [leader.sched], client, row["warm"])
+        if standby.elector.is_leader or standby.sched.state_uploads:
+            raise AssertionError(f"{name}: the standby led before the kill")
+        setup_s = time.perf_counter() - t_setup
+
+        builds0 = gk.builds
+        fences0 = metrics.fencing_aborts.value()
+        renew0 = metrics.lease_renew_failures.value()
+        fates = CommitFates(leader.sched)
+        # the deposed leader's fenced pods get a status write each, whose
+        # echo re-adds a pod the successor already popped (ROADMAP Queue
+        # 3 item 2): count the successor's pods drained twice into a batch
+        drains = DrainCounter(standby.sched.queue)
+        rec = StackRecorder([a.sched for a in apps], batch_mod)
+        gk.launches = 0  # the counts of THIS run of the path
+        pods = [make_pod(f"measure-{i}").container(cpu="250m", memory="512Mi")
+                .obj() for i in range(row["pods"])]
+        names = [p.metadata.name for p in pods]
+        watch = BindWatcher(server, names)
+        create_times = {}
+
+        def create():
+            for lo in range(0, len(pods), row["chunk"]):
+                if lo:
+                    time.sleep(row["chunk_interval"])
+                now = time.perf_counter()
+                for p in pods[lo:lo + row["chunk"]]:
+                    create_times[p.metadata.name] = now
+                client.create_pods_bulk(pods[lo:lo + row["chunk"]])
+            created.set()
+
+        start = time.perf_counter()
+        creator = threading.Thread(target=create, daemon=True)
+        creator.start()
+        third = len(names) // 3
+        inflight = []
+
+        def kill_point():
+            if len(watch.bind_times) < third:
+                return False
+            with leader.sched._pending_cv:
+                inflight.extend(leader.sched._pending_q)
+            return bool(inflight)
+
+        wait_for(kill_point, "a third bound with a batch in flight", step=0.001)
+        t_kill = time.perf_counter()
+        leader.elector.fault_injector = FaultInjector(FaultProfile(
+            "leader-kill", seed=0,
+            points={FaultPoint.LEASE_RENEW_FAIL: PointConfig(rate=1.0)}))
+        bound_at_kill = len(watch.bind_times)
+        inflight_names = {
+            p["solver_infos"][int(p["order"][k])].pod.metadata.name
+            for p in inflight for k in range(p["b"])}
+        wait_for(lambda: standby.elector.is_leader, "the standby to take over",
+                 timeout=60, step=0.001)
+        takeover_ms = (time.perf_counter() - t_kill) * 1000
+        wait_for(lambda: created.is_set() and watch._outstanding <= 0,
+                 "the measured pods")
+        elapsed = max(watch.bind_times[n] for n in names) - start
+        wait_for(lambda: not leader.elector.is_leader,
+                 "the deposed leader to abdicate", timeout=60)
+        # the deposed loop lands what it had in flight and stops
+        threads[0].join(timeout=60)
+        if threads[0].is_alive():
+            raise AssertionError(f"{name}: the deposed loop did not stop")
+        settle, gap = settle_wave(name, server, client, standby.sched)
+        standby.sched._stop.set()
+        threads[1].join(timeout=60)
+        if threads[1].is_alive():
+            raise AssertionError(f"{name}: the successor's loop did not stop")
+        for app in apps:
+            app.sched.wait_for_inflight_binds(timeout=60)
+        no_card_fault(name, scheds)
+        k1 = gk.launches
+        rec.close()
+        fences = metrics.fencing_aborts.value() - fences0
+        renews_failed = metrics.lease_renew_failures.value() - renew0
+        conflicts = conflict_ledger(standby.sched)
+        conflicts["drained_twice"] = drains.twice
+        audit = holds_bound_pods(name, standby.sched, client)
+        uploads = [a.sched.state_uploads for a in apps]
+    finally:
+        if watch is not None:
+            watch.stop()
+        if rec is not None:
+            rec.close()
+            drains.close()
+        for app in reversed(apps):
+            app.stop()
+        if creator is not None:
+            creator.join(timeout=30)
+
+    exactly_once(name, server, names + settle)
+    if over_capacity(client):
+        raise AssertionError(f"{name}: a node over capacity")
+    if gk.builds != builds0:
+        raise AssertionError(f"{name}: K1 was built after warmup")
+    first = rec.first[1]
+    if first is None or first[0] < t_kill or (first[1], first[2]) != (0, 1):
+        raise AssertionError(f"{name}: the successor's first dispatch was not "
+                             f"a cold upload: {first}")
+    # the batch in flight at the kill: fenced, or committed under a live
+    # lease (the fencing check said True just before its bulk bind)
+    seen = [(pods_, v) for pods_, v, _ in fates.records
+            if pods_ & inflight_names]
+    if not seen or any(v is None for _, v in seen):
+        raise AssertionError(f"{name}: the in-flight batch's commit was not "
+                             f"seen through the fence: {seen}")
+    fate = ("committed under a live lease" if all(v for _, v in seen)
+            else "fenced" if not any(v for _, v in seen) else "split")
+    if fate == "split":
+        raise AssertionError(f"{name}: the in-flight batch was split")
+    if fences and not any(v is False for _, v, _ in fates.records):
+        raise AssertionError(f"{name}: fencing aborts with no fenced commit")
+    counts, replay_s = rec.per_stack(name, tier, on_card, k1)
+    p50, p99 = latency_quantiles(watch.bind_times, create_times, names)
+    out = dict(
+        row=name, source=row["source"], nodes=row["nodes"], pods=len(names),
+        bound=len(names), seconds=elapsed, pods_per_sec=len(names) / elapsed,
+        p50_pod_to_bind_s=p50, p99_pod_to_bind_s=p99,
+        takeover_ms=takeover_ms, bound_at_kill=bound_at_kill,
+        inflight_at_kill=len(inflight_names), inflight_fate=fate,
+        fenced_commits=sum(1 for _, v, _ in fates.records if v is False),
+        fencing_aborts=fences, lease_renew_failures=renews_failed,
+        greedy_kernel_launches=k1, k1_launches_per_stack=counts,
+        state_uploads_per_stack=uploads,
+        successor_first_dispatch_ms_after_kill=(first[0] - t_kill) * 1000,
+        successor_carry_audit=audit, successor_carry_gap_before_settle=gap,
+        successor_conflicts=conflicts, replay_equal=True,
+        replay_seconds=replay_s, setup_seconds=setup_s,
+        cut="max_batch 4,096 -> 1,024; pods in chunks of 256 every 0.1 s",
+    )
+    emit("succession", **out)
+    return out
+
+
+def ha_chaos(gk, device=None, row=HA_CHAOS):
+    """HAChaos/2000: ``run_ha_chaos_bench`` (bench.py:164-309) as written,
+    on the port: two stacks of ``new_scheduler`` + ``LeaderElector`` over
+    one apiserver, the electors isolated from the global ``ha-chaos``
+    profile, the leader killed a third of the way in."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.types import LeaderElectionConfiguration
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig,
+        install_injector, load_profile,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.leaderelection import LeaderElector
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"
+    server = APIServer()
+    client = Client(server)
+    for i in range(row["nodes"]):
+        client.create_node(make_node(f"node-{i}").capacity(
+            cpu="32", memory="64Gi", pods=110).obj())
+    le_cfg = LeaderElectionConfiguration(
+        leader_elect=True, lease_duration_seconds=1.0,
+        renew_deadline_seconds=2.0, retry_period_seconds=0.1)
+    stacks, threads, runs = [], [], {}
+    escaped = []  # completion errors the card's halt was asked about
+    rec = watch = injector = None
+    fences0 = metrics.fencing_aborts.value()
+    try:
+        for i, identity in enumerate(("ha-a", "ha-b")):
+            informers = InformerFactory(server)
+            sched = new_scheduler(client, informers, batch=True,
+                                  max_batch=row["max_batch"], device=device)
+            if (sched.device.type == "cuda") != on_card:
+                raise AssertionError(f"{name}: a stack solves on {sched.device}")
+            halts = sched._halts_on_card
+
+            def halts_on_card(err, halts=halts):
+                escaped.append(repr(err))
+                return halts(err)
+
+            sched._halts_on_card = halts_on_card
+            orig_run = sched.run
+
+            def run(i=i, orig_run=orig_run):
+                runs[i] = threading.current_thread()
+                return orig_run()
+
+            elector = LeaderElector(client, le_cfg, identity,
+                                    on_started_leading=run,
+                                    on_stopped_leading=sched.stop)
+            # isolated from the global chaos stream: only the deliberate
+            # kill below may depose (bench.py:224-231)
+            elector.fault_injector = FaultInjector(FaultProfile("none", seed=0))
+            sched.fencing_check = elector.holds_lease
+            informers.start()
+            informers.wait_for_cache_sync()
+            stacks.append((informers, sched, elector))
+        stacks[0][1].warmup()
+        for _, _, elector in stacks:
+            t = threading.Thread(target=elector.run, daemon=True)
+            t.start()
+            threads.append(t)
+            deadline = time.time() + 10
+            while not stacks[0][2].is_leader and time.time() < deadline:
+                time.sleep(0.02)
+        if not stacks[0][2].is_leader:
+            raise AssertionError(f"{name}: no first leader")
+        scheds = [s for _, s, _ in stacks]
+
+        def wait_for(*a, **kw):
+            wait_until(name, scheds, *a, **kw)
+
+        builds0 = gk.builds
+        rec = StackRecorder([s for _, s, _ in stacks], batch_mod)
+        gk.launches = 0
+        burst = [make_pod(f"burst-{i}").container(cpu="250m", memory="512Mi")
+                 .obj() for i in range(row["pods"])]
+        names = [p.metadata.name for p in burst]
+        watch = BindWatcher(server, names)
+        create_times = {}
+        # global seeded chaos from here, after the bench's own watch opened
+        injector = FaultInjector(load_profile("ha-chaos", seed=row["fault_seed"]))
+        install_injector(injector)
+        start = time.perf_counter()
+        for lo in range(0, len(burst), row["chunk"]):
+            now = time.perf_counter()
+            for p in burst[lo:lo + row["chunk"]]:
+                create_times[p.metadata.name] = now
+            client.create_pods_bulk(burst[lo:lo + row["chunk"]])
+        wait_for(lambda: len(watch.bind_times) >= len(names) // 3,
+                 "a third bound", step=0.002)
+        t_kill = time.perf_counter()
+        stacks[0][2].fault_injector = FaultInjector(FaultProfile(
+            "leader-kill", seed=row["fault_seed"],
+            points={FaultPoint.LEASE_RENEW_FAIL: PointConfig(rate=1.0)}))
+        wait_for(lambda: stacks[1][2].is_leader, "the standby to take over",
+                 timeout=60, step=0.005)
+        takeover_ms = (time.perf_counter() - t_kill) * 1000
+        wait_for(lambda: watch._outstanding <= 0, "the burst")
+        elapsed = time.perf_counter() - start
+        install_injector(None)
+        wait_for(lambda: not stacks[0][2].is_leader,
+                 "the deposed leader to abdicate", timeout=60)
+        fired = {p: injector.fired_count(p) for p in injector.profile.points}
+        runs[0].join(timeout=60)
+        settle, gap = settle_wave(name, server, client, stacks[1][1])
+        stacks[1][1]._stop.set()
+        runs[1].join(timeout=60)
+        if any(t.is_alive() for t in runs.values()):
+            raise AssertionError(f"{name}: a scheduling loop did not stop")
+        for s in scheds:
+            s.wait_for_inflight_binds(timeout=30)
+        no_card_fault(name, scheds)
+        k1 = gk.launches
+        rec.close()
+        conflicts = conflict_ledger(stacks[1][1])
+        audit = holds_bound_pods(name, stacks[1][1], client)
+    finally:
+        install_injector(None)
+        if watch is not None:
+            watch.stop()
+        if rec is not None:
+            rec.close()
+        for informers, sched, elector in stacks:
+            elector.stop()
+            sched.stop()
+            informers.stop()
+    if escaped:
+        raise AssertionError(f"{name}: a batch completion failed under "
+                             f"ha-chaos: {escaped[:3]}")
+    exactly_once(name, server, names + settle)
+    if over_capacity(client):
+        raise AssertionError(f"{name}: a node over capacity")
+    if gk.builds != builds0:
+        raise AssertionError(f"{name}: K1 was built after warmup")
+    counts, replay_s = rec.per_stack(name, tier, on_card, k1)
+    p50, p99 = latency_quantiles(watch.bind_times, create_times, names)
+    out = dict(
+        row=name, source=row["source"], nodes=row["nodes"], pods=len(names),
+        fault_profile="ha-chaos", fault_seed=row["fault_seed"],
+        failover_takeover_ms=takeover_ms,
+        pods_per_sec_under_failover=len(names) / elapsed,
+        pods_bound=len(names), pods_total=len(names),
+        fencing_aborts=metrics.fencing_aborts.value() - fences0,
+        standby_took_over=True, faults_fired=fired,
+        p50_pod_to_bind_s=p50, p99_pod_to_bind_s=p99,
+        greedy_kernel_launches=k1, k1_launches_per_stack=counts,
+        state_uploads_per_stack=[s.state_uploads for _, s, _ in stacks],
+        completion_errors=len(escaped), successor_carry_audit=audit,
+        successor_carry_gap_before_settle=gap, successor_conflicts=conflicts,
+        replay_equal=True, replay_seconds=replay_s,
+    )
+    emit("succession", **out)
+    return out
+
+
+def crash_restart(gk, device=None, row=CRASH_RESTART):
+    """CrashRestart/5000: a ``SchedulerApp`` binds the warm pods and a first
+    wave, then dies between assume and bind on a K1 batch (the
+    crash_between_assume_and_bind point, one fire); a fresh
+    ``SchedulerApp`` in the same process recovers on startup and binds the
+    rest."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.config.types import KubeSchedulerConfiguration
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, FaultProfile, PointConfig, install_injector,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.app import SchedulerApp
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import metrics
+
+    name = row["name"]
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"
+    server = APIServer()
+
+    def incarnation():
+        app = SchedulerApp(config=KubeSchedulerConfiguration(), server=server,
+                           device=device)
+        if (app.sched.device.type == "cuda") != on_card:
+            raise AssertionError(f"{name}: it solves on {app.sched.device}")
+        app.sched.max_batch = row["max_batch"]
+        loops = []
+        orig_start = app.sched.start
+        app.sched.start = lambda: loops.append(orig_start()) or loops[-1]
+        return app, loops
+
+    first, loops1 = incarnation()
+    client = first.client
+    for i in range(row["nodes"]):
+        client.create_node(make_node(f"node-{i}").capacity(
+            cpu="32", memory="64Gi", pods=110).obj())
+    # every bulk bind the first incarnation sends after its crash
+    late = []
+    bind_bulk = first.client.bind_assumed_bulk
+
+    def sent(assumed, *a, **kw):
+        if first.sched.crashed:
+            late.append(len(assumed))
+        return bind_bulk(assumed, *a, **kw)
+
+    first.client.bind_assumed_bulk = sent
+    second = rec = watch = None
+
+    def wait_for(cond, what, sched):
+        wait_until(name, [sched], cond, what, step=0.01)
+
+    try:
+        first.start()
+        first.sched.warmup()
+        bind_warm(name, server, [first.sched], client, row["warm"])
+        builds0 = gk.builds
+        names = [f"measure-{i}" for i in range(row["pods"])]
+        watch = BindWatcher(server, names)
+        wave1 = row["wave1"]
+        made = [make_pod(n).container(cpu="250m", memory="512Mi").obj()
+                for n in names]
+        for lo in range(0, wave1, row["chunk"]):
+            client.create_pods_bulk(made[lo:lo + row["chunk"]])
+        wait_for(lambda: len(watch.bind_times) >= wave1, "the first wave",
+                 first.sched)
+        first.sched.wait_for_inflight_binds(timeout=60)
+        rec = StackRecorder([first.sched], batch_mod)
+        gk.launches = 0
+        install_injector(FaultInjector(FaultProfile(
+            "crash", seed=0,
+            points={FaultPoint.CRASH_BETWEEN_ASSUME_AND_BIND: PointConfig(
+                rate=1.0, max_fires=1)})))
+        for lo in range(wave1, len(made), row["chunk"]):
+            client.create_pods_bulk(made[lo:lo + row["chunk"]])
+        wait_for(lambda: first.sched.crashed, "the crash", first.sched)
+        # the dead incarnation's loop ends; nothing it held may commit
+        loops1[0].join(timeout=60)
+        if loops1[0].is_alive():
+            raise AssertionError(f"{name}: the dead loop did not stop")
+        first.sched.wait_for_inflight_binds(timeout=60)
+        install_injector(None)  # a restarted process has no injected fault
+        # the process is gone: its informers and sweeper stop with it; its
+        # scheduler (resident tensors, download and committer threads) is
+        # left as the crash left it
+        first.informers.stop()
+        if first.reconciler is not None:
+            first.reconciler.stop()
+        k1_first = gk.launches
+        rec.close()
+        pods_now = client.list_pods()[0]
+        bound_api = sum(1 for p in pods_now if p.spec.node_name)
+        stranded = sum(1 for p in pods_now if not p.spec.node_name)
+
+        second, loops2 = incarnation()
+        rec2 = StackRecorder([second.sched], batch_mod)
+        gk.launches = 0
+        adopted0 = metrics.pods_adopted_on_restart.value()
+        requeued0 = metrics.pods_requeued_on_restart.value()
+        t_start = time.perf_counter()
+        second.start()
+        wait_for(lambda: watch._outstanding <= 0, "the measured pods",
+                 second.sched)
+        t_done = max(watch.bind_times.values())
+        second.sched.wait_for_inflight_binds(timeout=60)
+        second.sched._stop.set()
+        loops2[0].join(timeout=60)
+        if loops2[0].is_alive() or second.sched.card_fault is not None:
+            raise AssertionError(f"{name}: the successor did not stop cleanly")
+        k1_second = gk.launches
+        rec2.close()
+        report = second.recovery_report
+        adopted = metrics.pods_adopted_on_restart.value() - adopted0
+        requeued = metrics.pods_requeued_on_restart.value() - requeued0
+        audit = holds_bound_pods(name, second.sched, client)
+    finally:
+        install_injector(None)
+        if watch is not None:
+            watch.stop()
+        for r in (rec, locals().get("rec2")):
+            if r is not None:
+                r.close()
+        if second is not None:
+            second.stop()
+        first.stop()
+
+    exactly_once(name, server, names)
+    if over_capacity(client):
+        raise AssertionError(f"{name}: a node over capacity")
+    if late:
+        raise AssertionError(f"{name}: the dead incarnation sent {len(late)} "
+                             f"bulk binds after its crash")
+    if stranded <= 0 or (report.adopted, report.requeued, report.healed) != (
+            bound_api, stranded, 0) or (adopted, requeued) != (
+            bound_api, stranded):
+        raise AssertionError(
+            f"{name}: recovery {report}, metered ({adopted}, {requeued}); the "
+            f"API held {bound_api} bound and {stranded} pending")
+    first2 = rec2.first[0]
+    if first2 is None or (first2[1], first2[2]) != (0, 1):
+        raise AssertionError(f"{name}: the successor's first dispatch was not "
+                             f"a cold upload: {first2}")
+    if gk.builds != builds0:
+        raise AssertionError(f"{name}: K1 was built again after the restart")
+    counts1, replay1 = rec.per_stack(name, tier, on_card, k1_first)
+    counts2, replay2 = rec2.per_stack(name, tier, on_card, k1_second)
+    out = dict(
+        row=name, source=row["source"], nodes=row["nodes"],
+        pods=len(names), warm=row["warm"], first_wave=wave1,
+        adopted=report.adopted, requeued=report.requeued,
+        healed=report.healed, bound_at_crash=bound_api, stranded=stranded,
+        late_bulk_binds=len(late),
+        recovery_ms=(first2[0] - t_start) * 1000,
+        pods_per_sec_after_restart=stranded / (t_done - t_start),
+        greedy_kernel_launches=k1_first + k1_second,
+        k1_launches_per_incarnation=[counts1[0], counts2[0]],
+        state_uploads_per_incarnation=[first.sched.state_uploads,
+                                       second.sched.state_uploads],
+        successor_carry_audit=audit, replay_equal=True,
+        replay_seconds=replay1 + replay2,
+    )
+    emit("succession", **out)
+    return out
+
+
+def drained_twice(gk, device=None):
+    """A correctness case beside the rows: a pod drained twice into one
+    batch (the status-write echo of ROADMAP Queue 3 item 2, which the
+    deposed leader's fenced pods set off in the successor) gets two K1
+    placements; the second copy's assume fails, so no host row changes.
+    The next dispatch must re-check that row and bring the carry back to
+    the host cache (one counted divergence), as HAFailover's successor
+    needs when the echo lands there."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    name = "DrainedTwice/8"
+    tier = "cuda" if device is None else "torch"
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=16,
+                          async_binding=False, device=device)
+    sched.batch_window = 0.0
+    for i in range(8):
+        client.create_node(make_node(f"n{i}").capacity(
+            cpu="4", memory="8Gi", pods=110).obj())
+    informers.pump()
+
+    def wave(prefix):
+        for i in range(4):
+            client.create_pod(make_pod(f"{prefix}{i}").container(
+                cpu="100m", memory="128Mi").obj())
+        informers.pump()
+
+    def held():
+        return int(sched._dev.req_shadow[:, 3].sum()), sched.cache.pod_count()
+
+    rec = StackRecorder([sched], batch_mod)
+    gk.launches = 0
+    try:
+        wave("a")
+        pop = sched.queue.pop_batch
+        sched.queue.pop_batch = lambda *a, **kw: (lambda b: b + b[:1])(
+            pop(*a, **kw))
+        sched.schedule_batch(timeout=0.1, pipeline=False)
+        sched.queue.pop_batch = pop
+        informers.pump()
+        after_dup = held()
+        wave("b")
+        sched.schedule_batch(timeout=0.1, pipeline=False)
+        informers.pump()
+        k1 = gk.launches
+    finally:
+        rec.close()
+    after_next = held()
+    state = shadow_state(sched)  # raises unless the carry equals the shadow
+    sched.cache.update_snapshot(sched.algorithm.snapshot)
+    nt = sched.tensor_cache.update(sched.algorithm.snapshot)
+    if (after_dup != (5, 4) or after_next != (8, 8)
+            or sched.carry_divergences != 1
+            or not np.array_equal(state[2], nt.requested)):
+        raise AssertionError(
+            f"{name}: the shadow and the cache held {after_dup} pods after "
+            f"the double drain, {after_next} after the next batch, "
+            f"{sched.carry_divergences} divergences")
+    rec.per_stack(name, tier, device is None, k1)
+    out = dict(row=name, source="tests/test_torch_queue_echo.py",
+               shadow_cache_pods_after_double_drain=after_dup,
+               after_next_dispatch=after_next,
+               carry_divergences=sched.carry_divergences,
+               state_uploads=sched.state_uploads, greedy_kernel_launches=k1,
+               replay_equal=True)
+    emit("succession", **out)
+    return out
+
+
+def http_get(host, port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def metric_samples(text, metric):
+    """The sample lines of one metric family: {labels: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(metric) and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key[len(metric):]] = float(value)
+    return out
+
+
+def cli_row(device=None, row=CLI_ROW):
+    """The operator's entry point on the card: ``python -m
+    kubernetes_tpu_torch --leader-elect --healthz-bind-address 127.0.0.1:0``
+    with manifests of SchedulingBasic/500's nodes and pods, run as a
+    subprocess; read over HTTP until every pod is scheduled, then SIGTERM.
+    ``device="cpu"`` rehearses it with the package's default device moved
+    to the CPU inside the child (the entry point has no device flag)."""
+    import signal
+    import tempfile
+
+    from kubernetes_tpu_torch.api.serialization import node_to_dict, pod_to_dict
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    name = row["name"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for kind, objs in (
+            ("nodes", [node_to_dict(make_node(f"node-{i}").capacity(
+                cpu="32", memory="64Gi", pods=110).obj())
+                for i in range(row["nodes"])]),
+            ("pods", [pod_to_dict(make_pod(f"measure-{i}").container(
+                cpu="250m", memory="512Mi").obj())
+                for i in range(row["pods"])]),
+        ):
+            path = os.path.join(tmp, f"{kind}.yaml")
+            with open(path, "w") as f:  # JSON documents are YAML documents
+                f.write("\n---\n".join(json.dumps(o) for o in objs))
+            paths.append(path)
+        args = ["--leader-elect", "--healthz-bind-address", "127.0.0.1:0"]
+        for p in paths:
+            args += ["--manifest", p]
+        if device is None:
+            cmd = [sys.executable, "-m", "kubernetes_tpu_torch", *args]
+        else:
+            cmd = [sys.executable, "-c", (
+                "import sys, runpy, kubernetes_tpu_torch.device as d; "
+                "r = d.resolve_device; "
+                f"d.resolve_device = lambda device=None: r(device or {device!r}); "
+                "runpy.run_module('kubernetes_tpu_torch', run_name='__main__')"),
+                *args]
+        errlog = os.path.join(tmp, "stderr.txt")
+        t0 = time.perf_counter()
+        with open(errlog, "w") as err:
+            proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.DEVNULL,
+                                    stderr=err)
+        try:
+            addr = None
+            deadline = time.time() + 120
+            while addr is None:
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"{name}: the CLI never served "
+                                         f"(rc {proc.poll()})")
+                with open(errlog) as f:
+                    m = re.search(r"serving healthz/metrics on ([\d.]+):(\d+)",
+                                  f.read())
+                if m:
+                    addr = (m.group(1), int(m.group(2)))
+                time.sleep(0.1)
+            t_serving = time.perf_counter()
+            if http_get(*addr, "/healthz") != "ok":
+                raise AssertionError(f"{name}: /healthz did not answer ok")
+            while True:
+                text = http_get(*addr, "/metrics")
+                done = metric_samples(text, "scheduler_schedule_attempts_total")
+                if done.get('{result="scheduled"}', 0) >= row["pods"]:
+                    break
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"{name}: {done} after {deadline}")
+                time.sleep(0.1)
+            t_bound = time.perf_counter()
+            batches = metric_samples(text, "scheduler_tpu_batch_size_count")
+            fallbacks = metric_samples(text, "scheduler_solver_fallback_total")
+            comparer = json.loads(http_get(*addr, "/debug/comparer"))
+            if not batches or min(batches.values()) < 1 or fallbacks:
+                raise AssertionError(f"{name}: device batches {batches}, "
+                                     f"fallbacks {fallbacks}")
+            if any(v for v in comparer.values()):
+                raise AssertionError(f"{name}: /debug/comparer found {comparer}")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            stop_s = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(errlog) as f:
+            stderr = f.read()
+    if rc != 0 or "Traceback" in stderr:
+        raise AssertionError(f"{name}: rc {rc}; stderr ends {stderr[-2000:]}")
+    out = dict(
+        row=name, source=row["source"], nodes=row["nodes"], pods=row["pods"],
+        scheduled=int(done['{result="scheduled"}']),
+        device_batches=int(sum(batches.values())),
+        boot_to_serving_s=t_serving - t0, serving_to_scheduled_s=t_bound - t_serving,
+        sigterm_to_exit_s=stop_s, rc=rc, comparer=comparer,
+    )
+    emit("succession", **out)
+    return out
+
+
+def succession(gk, device=None):
+    """The ``succession`` phase: HAFailover/5000, HAChaos/2000,
+    CrashRestart/5000, DrainedTwice/8 and the CLI, each on a fresh
+    apiserver."""
+    t0 = time.perf_counter()
+    recs = [ha_failover(gk, device), ha_chaos(gk, device),
+            crash_restart(gk, device), drained_twice(gk, device)]
+    cli = cli_row(device)
+    launches = sum(r["greedy_kernel_launches"] for r in recs)
+    emit("succession_phase", rows=len(recs) + 1,
+         seconds=time.perf_counter() - t0, greedy_kernel_launches=launches,
+         cli_device_batches=cli["device_batches"])
+    return dict(greedy_kernel_launches=launches)
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -6486,6 +7511,7 @@ def main():
     fam = constrained_families(gk, ck)
     gang = matrix_rows("gang", gk, GANG_ROWS)
     gpu = matrix_rows("gpu", gk, GPU_ROWS)
+    succ = succession(gk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -6500,7 +7526,8 @@ def main():
         + fam["greedy_kernel_launches"]
         + basic["greedy_kernel_launches"]
         + gang["greedy_kernel_launches"]
-        + gpu["greedy_kernel_launches"],
+        + gpu["greedy_kernel_launches"]
+        + succ["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],

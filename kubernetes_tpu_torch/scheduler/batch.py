@@ -529,6 +529,11 @@ class _DeviceNodeState:
         self.pending_deltas: "collections.deque" = collections.deque(
             maxlen=_SHADOW_RING_CAP
         )
+        # rows holding a mirrored placement that never reached the host
+        # cache (the pod's assume or Reserve failed, e.g. a pod drained
+        # twice into one batch): no cache change stamps them, so the
+        # next negotiation compares them along with the changed rows
+        self.recheck_rows: set = set()
 
     def invalidate_carry(self) -> None:
         self.req_dev = None
@@ -536,6 +541,7 @@ class _DeviceNodeState:
         self.req_shadow = None
         self.nzr_shadow = None
         self.pending_deltas.clear()
+        self.recheck_rows.clear()
 
 
 class BatchScheduler(Scheduler):
@@ -1659,6 +1665,9 @@ class BatchScheduler(Scheduler):
                 changed = self.tensor_cache.rows_changed_since(
                     ds.validated_epoch
                 )
+                if ds.recheck_rows:
+                    changed = np.union1d(changed, np.fromiter(
+                        ds.recheck_rows, np.int64, len(ds.recheck_rows)))
                 member = self.tensor_cache.membership_rows_since(
                     ds.validated_epoch
                 )
@@ -1765,6 +1774,7 @@ class BatchScheduler(Scheduler):
                 if member.size:
                     self.membership_row_patches += int(member.size)
                 ds.validated_epoch = d.epoch
+                ds.recheck_rows.clear()
                 self.state_reuses += 1
                 self.delta_rows_uploaded += int(
                     alloc_rows.size + didx_rows.size
@@ -1790,6 +1800,7 @@ class BatchScheduler(Scheduler):
             ds.req_shadow = node_requested.copy()
             ds.nzr_shadow = node_nzr.copy()
             ds.pending_deltas.clear()
+            ds.recheck_rows.clear()
             ds.validated_epoch = d.epoch if d is not None else -1
             self.state_uploads += 1
             return {
@@ -3508,6 +3519,7 @@ class BatchScheduler(Scheduler):
 
         bulk: List[Tuple] = []
         deferred: List[Tuple] = []  # sync-mode Permit waiters
+        unassumed: List[str] = []  # placed on the device, not in the cache
         if plain_pis:
             with timeline.span("commit.assume"):
                 # on the fast path the argsort grouped the clones by
@@ -3523,6 +3535,7 @@ class BatchScheduler(Scheduler):
                     plain_pis, clones, hosts, errs
                 ):
                     if err is not None:
+                        unassumed.append(host)
                         self.record_scheduling_failure(
                             prof, pi, str(err), "SchedulerError", "",
                             pod_scheduling_cycle,
@@ -3657,6 +3670,7 @@ class BatchScheduler(Scheduler):
             )
             self.pods_solved_on_device += 1
             if assumed is None:
+                unassumed.append(host)
                 continue
             span.bump("placed")
             waiting = prof.get_waiting_pod(assumed.metadata.uid) is not None
@@ -3693,6 +3707,12 @@ class BatchScheduler(Scheduler):
                     )
             else:
                 bulk.append((prof, state, pi, assumed, host))
+        if unassumed:
+            # the carry and the shadow hold these placements; the host
+            # cache never did, so no row change will point at them
+            row_of = {n: i for i, n in enumerate(names)}
+            with self._shadow_lock:
+                self._dev.recheck_rows.update(row_of[h] for h in unassumed)
         if failed_group:
             # a burst that overflows the cluster fails across SEVERAL
             # in-flight batches; preempting per batch pays the wave's
@@ -4061,6 +4081,11 @@ class BatchScheduler(Scheduler):
                 ready = kept
                 if not ready:
                     return
+        if self.crashed:
+            # the process died (a simulated crash on another bind thread)
+            # while this commit was on its way: a dead process sends no
+            # bind and cleans nothing up
+            return
         assumed_list = [t[3] for t in ready]
         bind_timer = metrics.SinceTimer(metrics.binding_duration)
         with timeline.span("bind_bulk"):
@@ -4332,6 +4357,7 @@ class BatchScheduler(Scheduler):
 
         self.queue.run()
         self._gc_guard = GCBatchGuard()
+        self._loop_lands_inflight = True
         try:
             while not self._stop.is_set():
                 # in-flight batches land on the committer thread, so the
@@ -4340,5 +4366,10 @@ class BatchScheduler(Scheduler):
             self._drain_pending()
             self._stop_committer()
         finally:
+            self._loop_lands_inflight = False
+            if self._stop.is_set() and self._bind_pool is not None:
+                # stop() left the pool to this loop, whose last batches
+                # have now been handed to it
+                self._bind_pool.shutdown(wait=False)
             guard, self._gc_guard = self._gc_guard, None
             guard.close()

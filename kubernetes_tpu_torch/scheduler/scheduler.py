@@ -85,6 +85,10 @@ class Scheduler:
         # set when an injected crash_between_assume_and_bind fired: the
         # process is "dead" -- the loop halts and NO cleanup runs
         self.crashed = False
+        # set while a batch run loop is up: it lands its in-flight batches
+        # after a stop (their commits still go through the bind pool and
+        # the fence), so the loop, not stop(), shuts the pool down
+        self._loop_lands_inflight = False
         # multi-active partitioned scheduling (scheduler/partition.py):
         # when a coordinator is attached this stack owns a node-space
         # slice; event handlers, recovery sweeps, pop-time skips, and
@@ -626,6 +630,8 @@ class Scheduler:
             # the pod is assumed but not yet bound: exactly the window a
             # process death strands (restart e2e drives this point)
             inj.crash_maybe(FaultPoint.CRASH_BETWEEN_ASSUME_AND_BIND)
+        if self.crashed:
+            return  # the process died meanwhile: no bind, no cleanup
         bind_timer = metrics.SinceTimer(metrics.binding_duration)
         status = self.bind(prof, state, assumed, host)
         bind_timer.observe()
@@ -713,7 +719,7 @@ class Scheduler:
             # broadcaster drains and exits (bounded: shutdown must not
             # hang on a stuck bind)
             self.wait_for_inflight_binds(timeout=5.0)
-        if self._bind_pool is not None:
+        if self._bind_pool is not None and not self._loop_lands_inflight:
             self._bind_pool.shutdown(wait=False)
         if broadcaster is not None:
             broadcaster.stop()

@@ -387,14 +387,46 @@ line is printed only when every phase passed):
    /healthz answers ok, /metrics counts 1,000 scheduled attempts, device
    batches and no solver fallback, /debug/comparer finds nothing, and
    SIGTERM ends it with code 0 within 30 s and no traceback.
-20. ``kernels``: every ported kernel with its launches on the main path,
+20. ``storm``: PriorityInversionStorm/500 (performance-config.yaml:326-343
+   through ``lifecycle_row``: 500 nodes, 5,000 fill pods of 3000m/6Gi
+   at priority 0 under a PDB of 400, 32 warm preemptors and 1,000
+   measured pods built as the runner builds them, priority 0 and 100 at
+   4:1, Poisson at 400/s with seed 23, the band threshold at 100; the
+   low storm can never place). Asserts every priority-100 pod bound, at
+   least a fifth of the measured pods bound, no incarnation bound twice,
+   no PDB below zero, every victim of priority 0, every solve and wave
+   on "cuda" and equal to its CPU replay, no fallback. Then
+   ``PriorityInversionStorm/500+preemption-chaos``: the same row under
+   the preemption-chaos profile at fault seed 42, where two K3 searches
+   each draw two PREEMPT_SOLVE fires: those waves are requeued for K3
+   (``Preemptor.injected_exhaustions``), not halted. Asserts the row's
+   gates and no card fault; all six PREEMPT_SOLVE fires booked as
+   in-place retries or requeued waves (at least one of each), every
+   DEVICE_SOLVE fire (at least one) retried in place or exhausted on
+   K1's tier, slow-dying victims, the one bind conflict absorbed by the
+   bulk bind's retry.
+21. ``extender``: ExtenderBurst/500 (SchedulingBasic/500's cluster and
+   pods, every node with 4 example.com/widget, every tenth measured pod
+   requesting one; an in-process HTTP extender on 127.0.0.1 managing
+   widgets, its filter rejecting every fifth node, its prioritize
+   preferring others at weight 5, its bind binding through the client),
+   through ``matrix_row``: exactly the 100 widget pods sent to the
+   sequential path by admission, the other 900 solved by K1 and every
+   solve equal to its CPU replay, the extender's bind called once per
+   widget pod and each bound once on a node its filter allowed, no node
+   over its CPU or widgets, no card fault. Then the extender unreachable
+   (a closed port; filter and prioritize): ignorable, all 1,000 bind;
+   not ignorable, the 100 widget pods stay pending with SchedulerError
+   and queued while the other 900 bind through K1.
+22. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
    adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
    ``containment``, ``pipeline``, ``constrained_families``,
-   SchedulingBasic/500, ``gang``, ``gpu`` and ``succession``, K2 in
-   ``constrained_families``, K3 in ``lifecycle`` and ``tenancy``).
+   SchedulingBasic/500, ``gang``, ``gpu``, ``succession``, ``storm`` and
+   ``extender``, K2 in ``constrained_families``, K3 in ``lifecycle``,
+   ``tenancy`` and ``storm``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -3296,14 +3328,30 @@ LIFECYCLE_ROWS = [
 LIFECYCLE_WAIT_S = 180  # each wait of a row: measured binds, settle
 
 
-def lifecycle_pod(make_pod, name, spec):
-    """A pod as benchmarks/runner.py:139 _build_pod builds these rows'."""
+def lifecycle_pod(make_pod, name, spec, idx=0):
+    """A pod as benchmarks/runner.py:139 _build_pod builds these rows':
+    with a priority mix, the ``idx``-th of its weighted rotation
+    (:152-165)."""
     w = make_pod(name).container(cpu=spec["cpu"], memory=spec["memory"])
     if spec.get("labels"):
         w.labels(**spec["labels"])
-    if spec.get("priority") is not None:
+    if spec.get("priority_mix"):
+        pattern = [p for p, weight in spec["priority_mix"]
+                   for _ in range(weight)]
+        w.priority(pattern[idx % len(pattern)])
+    elif spec.get("priority") is not None:
         w.priority(int(spec["priority"]))
     return w.obj()
+
+
+def deleted_priorities(server):
+    """The priorities of every pod deleted over the whole watch history
+    (in a preemption row, the victims)."""
+    w = server.watch("Pod", since_rv=0)
+    out = {ev.object.spec.priority for ev in w.pending()
+           if ev.type == "DELETED"}
+    w.stop()
+    return out
 
 
 def double_binds(server, rebinds_allowed):
@@ -3526,6 +3574,13 @@ def lifecycle_row(row, gk, pk, device=None):
             .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, nm).obj()
         )
 
+    # the row's fault profile, installed for the whole run
+    # (benchmarks/runner.py:924-930)
+    profile_injector = None
+    if row.get("fault_profile"):
+        profile_injector = FaultInjector(load_profile(
+            row["fault_profile"], seed=row["fault_seed"]))
+        install_injector(profile_injector)
     # the scenario, as benchmarks/runner.py:262-454 builds it
     mode = lc.get("mode")
     drainer = ledger = driver = None
@@ -3552,12 +3607,9 @@ def lifecycle_row(row, gk, pk, device=None):
     elif mode in ("reclaim_storm", "chaos"):
         # reclaim_storm: a private injector (never installed), so the
         # storm count is fixed and no solver fault rides along; chaos:
-        # the row's profile, installed for the whole run
-        # (benchmarks/runner.py:924-930, 389-411)
+        # the row's profile (benchmarks/runner.py:389-411)
         if mode == "chaos":
-            injector = FaultInjector(load_profile(
-                row["fault_profile"], seed=row["fault_seed"]))
-            install_injector(injector)
+            injector = profile_injector
         else:
             injector = FaultInjector(FaultProfile(
                 name="bench-reclaim", seed=0,
@@ -3652,9 +3704,25 @@ def lifecycle_row(row, gk, pk, device=None):
     stages0 = dict(sched.stage_seconds)
     patches0 = sched.membership_row_patches
     uploads0 = sched.state_uploads
-    injected0 = (sched.injected_retries, sched.injected_exhaustions,
-                 driver.injector.fired_count(FaultPoint.DEVICE_SOLVE)
-                 if driver is not None else 0)
+
+    def injected_now():
+        fired = {pt: profile_injector.fired_count(pt) for pt in (
+            FaultPoint.DEVICE_SOLVE, FaultPoint.PREEMPT_SOLVE,
+            FaultPoint.VICTIM_SLOW_DEATH, FaultPoint.BIND_CONFLICT)}
+        return dict(
+            device_solve_fires=fired[FaultPoint.DEVICE_SOLVE],
+            retries=sched.injected_retries,
+            exhaustions=sched.injected_exhaustions,
+            preempt_solve_fires=fired[FaultPoint.PREEMPT_SOLVE],
+            wave_retries=preemptor.ladder.injected_retries,
+            wave_exhaustions=preemptor.injected_exhaustions,
+            victim_slow_death_fires=fired[FaultPoint.VICTIM_SLOW_DEATH],
+            victims_slow_death=preemptor.victims_slow_death,
+            bind_conflict_fires=fired[FaultPoint.BIND_CONFLICT],
+            bind_retries=counter_total(metrics.bind_retries),
+        )
+
+    injected0 = injected_now() if profile_injector is not None else None
     gk.launches = 0  # the counts of THIS row's run of the path
     pk.launches = 0
     sched_thread = None
@@ -3689,6 +3757,9 @@ def lifecycle_row(row, gk, pk, device=None):
         return [p for p in client.list_pods()[0]
                 if p.metadata.deletion_timestamp is None]
 
+    high = (pre_cfg or {}).get("high_priority_threshold")
+    frac = row.get("min_bound_fraction", 1.0)
+
     try:
         init_n = row.get("init", 0)
         fill_s = 0.0
@@ -3708,9 +3779,13 @@ def lifecycle_row(row, gk, pk, device=None):
             sched_thread = sched.start()
         n_warm = row.get("init_preempt", 0)
         if n_warm:
-            warm = [lifecycle_pod(make_pod, f"warmpre-{i}", row["pod"])
+            # built as the measured pods are (runner.py:1057-1066); with a
+            # priority mix only the high band's can bind
+            warm = [lifecycle_pod(make_pod, f"warmpre-{i}", row["pod"], i)
                     for i in range(n_warm)]
-            watch = BindWatcher(server, [p.metadata.name for p in warm])
+            watch = BindWatcher(server, [
+                p.metadata.name for p in warm
+                if high is None or p.spec.priority >= high])
             client.create_pods_bulk(warm)
             wait_for(lambda: watch._outstanding <= 0, "the warm preemptors")
             watch.stop()
@@ -3718,7 +3793,7 @@ def lifecycle_row(row, gk, pk, device=None):
         setup_s = time.perf_counter() - t_setup
 
         measured_n = row["measured"]
-        pods = [lifecycle_pod(make_pod, f"measure-{i}", row["pod"])
+        pods = [lifecycle_pod(make_pod, f"measure-{i}", row["pod"], i)
                 for i in range(measured_n)]
         names = [p.metadata.name for p in pods]
         watch = BindWatcher(server, names)
@@ -3821,8 +3896,29 @@ def lifecycle_row(row, gk, pk, device=None):
                 for p in pods[lo:lo + 100]:
                     create_times[p.metadata.name] = now
                 client.create_pods_bulk(pods[lo:lo + 100])
-        wait_for(lambda: watch._outstanding <= 0, "the measured pods")
-        last_bind = max(watch.bind_times[nm] for nm in names)
+        if frac < 1.0:
+            # the runner's wait_fraction (:1254-1256): the row's fraction
+            # bound and no bind for 2 s; here the whole high band bound
+            # too (the row's gate, :1577-1588)
+            need = int(frac * measured_n)
+            high_names = [p.metadata.name for p in pods
+                          if p.spec.priority >= high]
+            quiet = dict(count=-1, since=time.time())
+
+            def fraction_settled():
+                count = sum(1 for nm in names if nm in watch.bind_times)
+                if count != quiet["count"]:
+                    quiet.update(count=count, since=time.time())
+                    return False
+                return (count >= need
+                        and all(nm in watch.bind_times for nm in high_names)
+                        and time.time() - quiet["since"] >= 2.0)
+
+            wait_for(fraction_settled, "the high band and the row's fraction")
+        else:
+            wait_for(lambda: watch._outstanding <= 0, "the measured pods")
+        bound_names = [nm for nm in names if nm in watch.bind_times]
+        last_bind = max(watch.bind_times[nm] for nm in bound_names)
         elapsed = last_bind - start
         if engine is not None:
             engine.stop()
@@ -3836,17 +3932,18 @@ def lifecycle_row(row, gk, pk, device=None):
             wait_for(lambda: not scenario_thread.is_alive(), "the scenario")
         # settle: every live incarnation bound (the respawned clones the
         # name-keyed watch cannot see), the fleet back to Running
-        high = (pre_cfg or {}).get("high_priority_threshold")
 
         def settled():
             live = live_pods()
             unbound = [p for p in live if not p.spec.node_name]
             if high is not None:
                 # the cluster is full by construction: respawned victims
-                # (priority 0) have no room; the high band must all bind
+                # (priority 0) have no room; the high band must all bind,
+                # and with a priority mix the low storm may wait
                 return not [p for p in unbound
                             if p.spec.priority >= high
-                            or not p.metadata.name.startswith("init-")]
+                            or (frac >= 1.0 and not
+                                p.metadata.name.startswith("init-"))]
             if unbound:
                 return False
             if fleet_cfg:
@@ -3891,7 +3988,7 @@ def lifecycle_row(row, gk, pk, device=None):
         for comp in reversed(stoppers):
             comp.stop()
         sched.stop()
-        if mode == "chaos":
+        if profile_injector is not None:
             install_injector(None)
 
     doubles = double_binds(server, 1 if fleet_cfg else 0)
@@ -3910,23 +4007,39 @@ def lifecycle_row(row, gk, pk, device=None):
     )
     moved = {k: moved[k] - counters0[k] for k in moved}
     injected = None
-    if mode == "chaos":
+    if profile_injector is not None:
         # every DEVICE_SOLVE fire was retried in place on the card's tier
         # or, the attempts spent, exhausted the ladder (one booked
-        # fallback each) and was solved again on the card
-        injected = dict(
-            device_solve_fires=driver.injector.fired_count(
-                FaultPoint.DEVICE_SOLVE) - injected0[2],
-            retries=sched.injected_retries - injected0[0],
-            exhaustions=sched.injected_exhaustions - injected0[1],
-        )
+        # fallback each) and was solved again on the card; every
+        # PREEMPT_SOLVE fire alike on K3's, an exhausted search requeued
+        # and solved again by K3
+        now = injected_now()
+        injected = {k: now[k] - injected0[k] for k in now}
         if (injected["device_solve_fires"]
                 != injected["retries"] + injected["exhaustions"]
-                or moved.pop("retries") != injected["retries"]
-                or moved.pop("fallbacks") != injected["exhaustions"]):
+                or injected["preempt_solve_fires"]
+                != injected["wave_retries"] + injected["wave_exhaustions"]
+                or moved.pop("retries")
+                != injected["retries"] + injected["wave_retries"]
+                or moved.pop("fallbacks")
+                != injected["exhaustions"] + injected["wave_exhaustions"]
+                or injected["bind_retries"]
+                != injected["bind_conflict_fires"]):
             raise AssertionError(
                 f"{name}: injected faults {injected}, counters {moved}"
             )
+        short = {k: (injected[k], v)
+                 for k, v in (row.get("injected_gates") or {}).items()
+                 if injected[k] < v}
+        if short:
+            raise AssertionError(
+                f"{name}: injected faults below their gates {short}: "
+                f"{injected}"
+            )
+        if not on_card and injected["wave_exhaustions"]:
+            # rehearsal only: the CPU's floor answers an exhausted wave
+            moved.pop("host_preemptions")
+    if mode == "chaos":
         if driver.flaps + driver.storms < lc["min_events"]:
             raise AssertionError(
                 f"{name}: {driver.flaps} flaps and {driver.storms} storms"
@@ -3949,6 +4062,10 @@ def lifecycle_row(row, gk, pk, device=None):
         )
     if floor < 0:
         raise AssertionError(f"{name}: a PDB went to {floor}")
+    victim_prios = deleted_priorities(server) if pre_cfg else set()
+    if victim_prios - {0}:
+        raise AssertionError(
+            f"{name}: a victim of priority {sorted(victim_prios)}")
     # every K1 launch replayed on the CPU, every K3 launch through the
     # plain version
     greedy = [c for c in calls if c["mode"] == "greedy"]
@@ -4052,11 +4169,13 @@ def lifecycle_row(row, gk, pk, device=None):
     if on_card and plan_shape is not None:
         # one plan launch at this row's largest plan, by CUDA events
         plan_ms, _ = cuda_ms(lambda: orig_k3(*plan_args), 20)
-    lat = sorted(watch.bind_times[nm] - create_times[nm] for nm in names)
+    lat = sorted(watch.bind_times[nm] - create_times[nm]
+                 for nm in bound_names)
     rec = dict(
         row=name, source=f"benchmarks/config/performance-config.yaml"
         f"{row['source']}", nodes=n_nodes, init_pods=row.get("init", 0),
-        pods=measured_n, seconds=elapsed, pods_per_sec=measured_n / elapsed,
+        pods=measured_n, measured_bound=len(bound_names), seconds=elapsed,
+        pods_per_sec=len(bound_names) / elapsed,
         p50_arrival_to_bind_s=lat[len(lat) // 2],
         p99_arrival_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
         live_pods=len(live), bound=sum(1 for p in live if p.spec.node_name),
@@ -4086,7 +4205,7 @@ def lifecycle_row(row, gk, pk, device=None):
             seed=streaming.seed, created=engine.created,
             backpressure_stalls=engine.backpressure_stalls,
         )
-    emit("lifecycle", **rec)
+    emit(row.get("phase", "lifecycle"), **rec)
     return rec
 
 
@@ -4103,6 +4222,63 @@ def lifecycle(gk, pk, device=None, rows=LIFECYCLE_ROWS):
     )
     emit("lifecycle_phase", rows=len(recs),
          seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
+# -- the priority-inversion storm ----------------------------------------------
+
+# benchmarks/config/performance-config.yaml:326-343 as benchmarks/runner.py
+# builds it (the priority mix :152-165, the warm preemptors :1057-1066 built
+# as the measured pods, the row's fraction :1254-1256, the high band's gate
+# :1577-1588): 5,000 fill pods on 500 nodes, then 1,000 pods at priority 0
+# and 100 (4:1) arriving at 400/s. The low storm can never place; the
+# high band jumps the queue and preempts. Then the same row under the
+# preemption-chaos profile at fault seed 42 (runner.py:924-931): two K3
+# searches each draw two PREEMPT_SOLVE fires, so their waves exhaust the
+# card's tier and are requeued for K3, where the JAX package steps down
+# to its XLA twin and the host oracle.
+PRIORITY_INVERSION_STORM = dict(
+    name="PriorityInversionStorm/500", phase="storm", source=":326-343",
+    nodes=500, init=5000,
+    init_pod=dict(cpu="3000m", memory="6Gi", priority=0,
+                  labels={"app": "fill"}),
+    measured=1000, pod=dict(cpu="3000m", memory="6Gi",
+                            priority_mix=[(0, 4), (100, 1)]),
+    init_preempt=32, min_bound_fraction=0.2,
+    streaming=dict(trace="poisson", rate=400, seed=23, sloP99="5s",
+                   bandPriorityThreshold=100),
+    preemption=dict(pdb=dict(match_labels={"app": "fill"},
+                             max_unavailable=400),
+                    respawn_prefix="init-", high_priority_threshold=100),
+)
+STORM_ROWS = [
+    PRIORITY_INVERSION_STORM,
+    dict(PRIORITY_INVERSION_STORM,
+         name="PriorityInversionStorm/500+preemption-chaos",
+         fault_profile="preemption-chaos", fault_seed=42,
+         # the least each count must reach: at least one wave requeued,
+         # in-place retries on K3's tier and on K1's, slow-dying victims;
+         # every PREEMPT_SOLVE fire the profile allows spent, and its one
+         # bind conflict (absorbed by the bulk bind's retry)
+         injected_gates=dict(wave_exhaustions=1, wave_retries=1,
+                             victim_slow_death_fires=1,
+                             victims_slow_death=1, device_solve_fires=1,
+                             preempt_solve_fires=6, bind_conflict_fires=1)),
+]
+
+
+def storm(gk, pk, device=None, rows=STORM_ROWS):
+    """The ``storm`` phase: each row on a fresh stack through
+    ``lifecycle_row``."""
+    t0 = time.perf_counter()
+    recs = [lifecycle_row(row, gk, pk, device) for row in rows]
+    totals = dict(
+        greedy_kernel_launches=sum(r["greedy_kernel_launches"] for r in recs),
+        preempt_kernel_launches=sum(
+            r["preempt_kernel_launches"] for r in recs),
+    )
+    emit("storm_phase", rows=len(recs), seconds=time.perf_counter() - t0,
+         **totals)
     return totals
 
 
@@ -6130,7 +6306,8 @@ def settled_audit(sched):
 
 def node_usage(pods):
     """Per node, the sums of its bound pods' requests: cpu (milli),
-    memory (bytes), pods, GPUs, and the aligned GPUs per NUMA group."""
+    memory (bytes), pods, GPUs, every extended resource, and the aligned
+    GPUs per NUMA group."""
     from kubernetes_tpu_torch.api.types import pod_resource_requests
     from kubernetes_tpu_torch.plugins.numa import ASSIGNED_ANNOTATION
 
@@ -6141,11 +6318,14 @@ def node_usage(pods):
             continue
         req = pod_resource_requests(p)
         u = use.setdefault(node, dict(cpu=0, memory=0, pods=0, gpu=0,
-                                      groups={}))
+                                      groups={}, scalars={}))
         u["cpu"] += int(req.get("cpu", 0))
         u["memory"] += int(req.get("memory", 0))
         u["pods"] += 1
         u["gpu"] += int(req.get(GPU_RESOURCE, 0))
+        for k, v in req.items():
+            if "/" in k:
+                u["scalars"][k] = u["scalars"].get(k, 0) + int(v)
         g = p.metadata.annotations.get(ASSIGNED_ANNOTATION)
         if g is not None:
             u["groups"][g] = (u["groups"].get(g, 0)
@@ -6153,11 +6333,12 @@ def node_usage(pods):
     return use
 
 
-def matrix_row(row, gk, device=None):
-    """One gang, GPU or basic row on a fresh stack through the entry
-    points, as ``benchmarks/runner.py`` builds it. Asserts the row's
-    gate (every measured pod bound, or the row's min_bound_fraction), no
-    node over its capacity or its GPUs, no NUMA group over its size,
+def matrix_row(row, gk, device=None, hooks=None):
+    """One gang, GPU, basic or extender row on a fresh stack through the
+    entry points, as ``benchmarks/runner.py`` builds it. Asserts the
+    row's gate (every measured pod bound, or the row's
+    min_bound_fraction), no card fault, no node over its capacity or its
+    extended resources, no NUMA group over its size,
     every gang whole or absent, every device solve on the card and equal
     to its CPU replay from its pieces and handed carry (re-solves
     included; K1's launches equal to the solves), a gang re-solve handed
@@ -6165,7 +6346,11 @@ def matrix_row(row, gk, device=None):
     carry auditing clean at the end with the host cache and the resident
     carry both holding exactly the bound pods (a masked gang reserves
     nothing), and no fallback beyond the pods the admission sends to the
-    sequential path."""
+    sequential path (at least those, where the row's host-only pods are
+    requeued: ``host_only_requeued``). ``hooks.started(client)`` sees
+    the stack's client before any pod exists; ``hooks.finished(server,
+    client, sched, names)`` adds the row's own checks and fields, with
+    the stack stopped."""
     import copy
     from collections import Counter
 
@@ -6190,9 +6375,12 @@ def matrix_row(row, gk, device=None):
     solver = GreedyConfig(**row["solver"]) if row.get("solver") else None
     sched = new_scheduler(client, informers, batch=True,
                           max_batch=row.get("max_batch", MAX_CONSTRAINED_BATCH),
-                          solver_config=solver, device=device)
+                          solver_config=solver, device=device,
+                          extenders=row.get("extenders"))
     if sched.device.type != ("cuda" if device is None else device):
         raise AssertionError(f"{name}: the scheduler solves on {sched.device}")
+    if hooks is not None:
+        hooks.started(client)
     node = row.get("node") or {}
     cap = dict(cpu=node.get("cpu", "32"), memory=node.get("memory", "64Gi"),
                pods=node.get("pods", 110))
@@ -6222,7 +6410,8 @@ def matrix_row(row, gk, device=None):
     if init_names:
         watch = BindWatcher(server, init_names)
         for nm in init_names:
-            client.create_pod(matrix_pod(make_pod, nm, specs[0]))
+            client.create_pod(matrix_pod(make_pod, nm,
+                                         row.get("init_spec", specs[0])))
     loop = sched.start()
     if init_names:
         if not watch.wait(timeout):
@@ -6335,6 +6524,10 @@ def matrix_row(row, gk, device=None):
     need = int(row.get("min_bound_fraction", 1.0) * n)
     if not completed or bound < need:
         raise AssertionError(f"{name}: {bound}/{n} pods bound, {need} needed")
+    if sched.card_fault is not None:
+        raise AssertionError(
+            f"{name}: the card faulted: {sched.card_fault!r}"
+        ) from sched.card_fault
     use = node_usage(pods)
     node_gpus = scalars.get(GPU_RESOURCE, 0)
     groups = [int(x) for x in node.get("numa_groups", "").split("_") if x]
@@ -6342,7 +6535,8 @@ def matrix_row(row, gk, device=None):
     mem_b = int(cap["memory"][:-2]) << 30
     for nm, u in use.items():
         if (u["cpu"] > cpu_m or u["memory"] > mem_b or u["pods"] > cap["pods"]
-                or u["gpu"] > node_gpus):
+                or u["gpu"] > node_gpus or any(
+                    v > scalars.get(k, 0) for k, v in u["scalars"].items())):
             raise AssertionError(f"{name}: {nm} over its capacity: {u}")
         if any(v > groups[int(g)] for g, v in u["groups"].items()):
             raise AssertionError(f"{name}: a NUMA group of {nm} over its "
@@ -6385,7 +6579,10 @@ def matrix_row(row, gk, device=None):
         raise AssertionError(f"{name}: K1 {k1} launches for {len(calls)} "
                              f"solves")
     sequential = sum(host_only.values())
-    if moved["pods_fallback"] != sequential or any(
+    fallback_ok = (moved["pods_fallback"] >= sequential
+                   if row.get("host_only_requeued")
+                   else moved["pods_fallback"] == sequential)
+    if not fallback_ok or any(
         v for k, v in moved.items() if k != "pods_fallback"
     ):
         raise AssertionError(
@@ -6432,6 +6629,7 @@ def matrix_row(row, gk, device=None):
         p50_pod_to_bind_s=lat[len(lat) // 2],
         p99_pod_to_bind_s=lat[min(len(lat) - 1, len(lat) * 99 // 100)],
         batches=len(dispatched), solves=len(calls),
+        device_solved=sum(1 for nm in want if nm in create_times),
         r=max((dict(c["pieces"])["req"].shape[1] for c in calls), default=0),
         greedy_kernel_launches=k1, gang_resolves=gang_resolves,
         cold_uploads=uploads, groups_whole=len(group_sizes),
@@ -6440,6 +6638,8 @@ def matrix_row(row, gk, device=None):
         replay_equal=True, replay_seconds=replay_s, stage_seconds=stages,
         setup_seconds=setup_s,
     )
+    if hooks is not None:
+        rec.update(hooks.finished(server, client, sched, names))
     emit(row["phase"], **rec)
     return rec
 
@@ -6450,6 +6650,203 @@ def matrix_rows(phase, gk, rows, device=None):
     recs = [matrix_row(row, gk, device) for row in rows]
     launches = sum(r["greedy_kernel_launches"] for r in recs)
     emit(f"{phase}_phase", rows=len(recs), seconds=time.perf_counter() - t0,
+         greedy_kernel_launches=launches)
+    return dict(greedy_kernel_launches=launches)
+
+
+# -- the HTTP extender ---------------------------------------------------------
+
+# SchedulingBasic/500's cluster and pods (performance-config.yaml:19-23),
+# every node advertising 4 widgets and every tenth measured pod requesting
+# one, with one binder extender managing the widgets
+# (scheduler/extender.py): those pods leave the batch for the sequential
+# path, and a binder extender turns off the bulk commit. The matrix has no
+# extender row, so this replaces none. The widget pod leads each ten, so a
+# K1 batch ends the row: a host bind reaches the resident carry at the
+# next dispatch, and the row's check holds the carry to every bound pod.
+WIDGET = "example.com/widget"
+BASIC_POD = dict(cpu="250m", memory="512Mi")
+EXTENDER_BURST = dict(
+    SCHEDULING_BASIC_500, name="ExtenderBurst/500", phase="extender",
+    source=":19-23 + an extender", node=dict(scalars={WIDGET: 4}),
+    init_spec=BASIC_POD,
+    pods=[dict(BASIC_POD, scalars={WIDGET: 1})] + [BASIC_POD] * 9,
+    # host binds interleave with the K1 solves: no chained host replay
+    chain=False)
+WIDGET_PODS = EXTENDER_BURST["measured"] // 10
+
+
+class ExtenderHarness:
+    """One extender of the ``extender`` phase. Reachable: an in-process
+    HTTP server on 127.0.0.1 with the handler pattern of
+    ``tests/test_extender.py:19-76`` -- the filter rejects every
+    ``node-<i>`` with i a multiple of 5, the prioritize (weight 5)
+    prefers i = 1 mod 5 and the bind binds through the stack's client,
+    as a real binder extender does. Unreachable: a closed port, filter
+    and prioritize only (a bind that cannot be sent fails the pod
+    whether the extender is ignorable or not)."""
+
+    def __init__(self, reachable=True, ignorable=False):
+        import socket
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from kubernetes_tpu_torch.api.types import Binding
+        from kubernetes_tpu_torch.scheduler.extender import ExtenderConfig
+
+        self.reachable = reachable
+        self.bindings = []
+        self.client = None
+        self.httpd = None
+        harness = self
+
+        def index(name):
+            return int(name[5:]) if name.startswith("node-") else -1
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                args = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                names = args.get("nodenames", [])
+                if self.path.endswith("/filter"):
+                    failed = {n: "extender says no" for n in names
+                              if index(n) % 5 == 0}
+                    out = {"nodeNames": [n for n in names if n not in failed],
+                           "failedNodes": failed}
+                elif self.path.endswith("/prioritize"):
+                    out = [{"host": n, "score": 10 if index(n) % 5 == 1
+                            else 0} for n in names]
+                elif self.path.endswith("/bind"):
+                    out = {}
+                    try:
+                        harness.client.bind(Binding(
+                            pod_namespace=args["podNamespace"],
+                            pod_name=args["podName"], pod_uid=args["podUID"],
+                            target_node=args["node"]))
+                        harness.bindings.append(
+                            (args["podName"], args["node"]))
+                    except Exception as e:  # noqa: BLE001 - the answer
+                        out = {"error": repr(e)}
+                else:
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        if reachable:
+            self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+            self.httpd.daemon_threads = True
+            port = self.httpd.server_port
+            threading.Thread(target=self.httpd.serve_forever,
+                             daemon=True).start()
+        else:
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+        self.config = ExtenderConfig(
+            url_prefix=f"http://127.0.0.1:{port}", filter_verb="filter",
+            prioritize_verb="prioritize",
+            bind_verb="bind" if reachable else "", weight=5,
+            node_cache_capable=True, ignorable=ignorable,
+            managed_resources=[WIDGET])
+
+    def started(self, client):
+        self.client = client
+
+    def finished(self, server, client, sched, names):
+        """The extender's own checks: the widget pods bound once each by
+        the extender's bind on a node its filter allowed (reachable), or
+        left pending with ``SchedulerError`` and requeued (unreachable,
+        not ignorable)."""
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+        from kubernetes_tpu_torch.api.types import pod_resource_requests
+
+        pods = {p.metadata.name: p for p in client.list_pods()[0]}
+        widget = {nm for nm in names
+                  if WIDGET in pod_resource_requests(pods[nm])}
+        if self.reachable:
+            binds = bind_transitions(server)
+            bound = {nm for nm, node in self.bindings}
+            bad = [(nm, node) for nm, node in self.bindings
+                   if int(node[5:]) % 5 == 0
+                   or pods[nm].spec.node_name != node or binds.get(nm) != 1]
+            if (len(self.bindings) != len(widget) or bound != widget
+                    or bad):
+                raise AssertionError(
+                    f"the extender bound {len(self.bindings)} pods, "
+                    f"{len(widget)} requested widgets; off the filter or "
+                    f"bound twice: {bad[:3]}")
+            return dict(extender_binds=len(self.bindings))
+        if self.config.ignorable:
+            return dict(extender_binds=0)
+        pending = sched.queue.num_pending()
+        stuck = [nm for nm in widget
+                 if pods[nm].spec.node_name or not any(
+                     c.type == "PodScheduled" and c.reason == "SchedulerError"
+                     for c in pods[nm].status.conditions)]
+        queued = sum(pending[k] for k in ("active", "backoff",
+                                          "unschedulable"))
+        if stuck or queued != len(widget):
+            raise AssertionError(
+                f"{len(stuck)} widget pods bound or without SchedulerError, "
+                f"{queued} pods queued")
+        return dict(extender_binds=0, widget_pods_requeued=queued)
+
+
+def extender(gk, device=None):
+    """The ``extender`` phase: ExtenderBurst/500 with a reachable binder
+    extender, then the extender unreachable, ignorable and not. Every
+    run through ``matrix_row``: the K1 solves replayed, no node over its
+    CPU or its widgets, no card fault; here also the admission sending
+    exactly the widget pods to the sequential path and K1 solving the
+    others."""
+    import logging
+
+    t0 = time.perf_counter()
+    cases = [
+        (EXTENDER_BURST, dict(reachable=True, ignorable=False)),
+        (dict(EXTENDER_BURST, name="ExtenderUnreachable/500+ignorable"),
+         dict(reachable=False, ignorable=True)),
+        (dict(EXTENDER_BURST, name="ExtenderUnreachable/500",
+              min_bound_fraction=0.9, host_only_requeued=True),
+         dict(reachable=False, ignorable=False)),
+    ]
+    recs = []
+    # an unreachable extender's every call is logged (a requeued pod's
+    # failure with its traceback): the counts below stand for them
+    logs = [logging.getLogger(f"kubernetes_tpu_torch.scheduler.{m}")
+            for m in ("scheduler", "extender")]
+    levels = [log.level for log in logs]
+    for row, kw in cases:
+        harness = ExtenderHarness(**kw)
+        if not kw["reachable"]:
+            for log in logs:
+                log.setLevel(logging.CRITICAL)
+        try:
+            rec = matrix_row(dict(row, extenders=[harness.config]), gk,
+                             device, hooks=harness)
+        finally:
+            for log, level in zip(logs, levels):
+                log.setLevel(level)
+        want = {"extender-interested": WIDGET_PODS}
+        solved = row["measured"] - WIDGET_PODS
+        if rec["host_only"] != want or rec["device_solved"] != solved:
+            raise AssertionError(
+                f"{row['name']}: host-only {rec['host_only']}, "
+                f"{rec['device_solved']} pods solved by K1 ({solved} due)")
+        recs.append(rec)
+    launches = sum(r["greedy_kernel_launches"] for r in recs)
+    emit("extender_phase", rows=len(recs), seconds=time.perf_counter() - t0,
          greedy_kernel_launches=launches)
     return dict(greedy_kernel_launches=launches)
 
@@ -7512,6 +7909,8 @@ def main():
     gang = matrix_rows("gang", gk, GANG_ROWS)
     gpu = matrix_rows("gpu", gk, GPU_ROWS)
     succ = succession(gk)
+    st = storm(gk, pk)
+    ext = extender(gk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -7527,7 +7926,9 @@ def main():
         + basic["greedy_kernel_launches"]
         + gang["greedy_kernel_launches"]
         + gpu["greedy_kernel_launches"]
-        + succ["greedy_kernel_launches"],
+        + succ["greedy_kernel_launches"]
+        + st["greedy_kernel_launches"]
+        + ext["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],
@@ -7566,7 +7967,8 @@ def main():
         replaces="kubernetes_tpu/ops/pallas_preempt.py:69",
         launches=pre["preempt_kernel_launches"]
         + life["preempt_kernel_launches"]
-        + ten["preempt_kernel_launches"],
+        + ten["preempt_kernel_launches"]
+        + st["preempt_kernel_launches"],
         max_abs_err=p_max_err,
         ms=p_timing["ms"],
         plain_ms=p_timing["plain_ms"],

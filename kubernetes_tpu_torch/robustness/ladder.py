@@ -16,7 +16,11 @@ Tier semantics:
   ``solve_retries{tier="cuda"}`` and ``injected_retries``); once the
   attempts are spent the ladder raises LadderExhausted with the
   FaultInjected as its cause, and the batch scheduler solves the batch
-  again on the card (drain and redispatch, or containment).
+  again on the card (drain and redispatch, or containment). A K3 victim
+  search so exhausted (a wave, or one pod's search on the per-pod path)
+  nominates no pod: its pods are requeued on the ordinary backoff and
+  the next wave solves them on K3 again (scheduler/preemption.py). A
+  LadderExhausted with any other cause is a fault of the card there.
 - ``torch``: the kernel's plain PyTorch version -- the device tier ONLY
   when the solver's tensors are on the CPU (tests). It is never a tier
   on the card: there the plain version serves nothing.

@@ -639,11 +639,6 @@ class BatchScheduler(Scheduler):
         self._deferred_since = 0.0
         self._prewarm_next_commit = False
         self._committer_stop = False
-        # on the card a failed batch completion (a kernel fault in the
-        # deferred preemption wave, a failed download) is not requeued
-        # and retried behind the kernel's back: the committer keeps the
-        # error here and stops the scheduler (_halt_on_card_fault)
-        self.card_fault: Optional[BaseException] = None
         # -- admission classifier state (scheduler/admission.py) ---------
         # volume-topology generation: bumped by every PV/PVC/StorageClass/
         # CSINode event (eventhandlers), compared against each PVC-bearing
@@ -1416,14 +1411,6 @@ class BatchScheduler(Scheduler):
         return self.device.type == "cuda" and not isinstance(
             err, DeviceLostInFlight
         )
-
-    def _halt_on_card_fault(self, err: BaseException) -> None:
-        """A batch completion failed on the card: keep the error for the
-        scheduler's owner and stop the scheduler, instead of requeueing
-        the batch to meet the same fault again."""
-        logger.error("batch completion failed on the card: %r", err)
-        self.card_fault = err
-        self._stop.set()
 
     def _recover_failed_batch(self, p) -> None:
         """A committer crash (serving-link error mid-download, commit
@@ -3782,7 +3769,10 @@ class BatchScheduler(Scheduler):
                 if self.device.type == "cuda":
                     # a fault of the card's victim search (K3) is not
                     # answered by an empty wave that requeues and retries
-                    # it: it propagates, as a batch solve's does
+                    # it: it propagates, as a batch solve's does. An
+                    # injected fault that spent its attempts is not a
+                    # fault of K3: preempt_batch returns that wave with
+                    # no nomination, and the requeue below retries it
                     raise
                 logger.exception("batched device preemption failed")
                 nominated = [""] * len(items)

@@ -10,7 +10,11 @@ MoreImportantPod/GetPodStartTime from pkg/scheduler/util/utils.go:38-83.
 A device-eligible pod (a plain pod, see ``device_eligible``) preempts
 through the device victim search (ops/preemption.py): on the card a
 whole wave is one launch of kernel K3 (ops/preempt_kernel.py), and a
-fault there raises -- nothing steps down to the host oracle. On the CPU
+fault there raises -- nothing steps down to the host oracle. The one
+exception is a chaos profile's injected fault (FaultInjected) that has
+spent the ladder's in-place attempts: the wave (or the single pod) gets
+no nomination this cycle, is requeued on the ordinary backoff and is
+solved again by K3 (``injected_exhaustions``). On the CPU
 the search runs K3's plain PyTorch version (the ``torch`` tier) and the
 host oracle below is the floor. Every other pod takes the host oracle,
 which is also the parity reference. Drain planning
@@ -36,14 +40,18 @@ from kubernetes_tpu_torch.framework.interface import (
     FitError,
     StatusCode,
 )
-from kubernetes_tpu_torch.robustness.faults import FaultPoint, get_injector
+from kubernetes_tpu_torch.robustness.faults import (
+    FaultInjected,
+    FaultPoint,
+    get_injector,
+)
 from kubernetes_tpu_torch.robustness.ladder import (
     TIER_CUDA,
     TIER_TORCH,
     LadderExhausted,
     SolverLadder,
 )
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 logger = logging.getLogger(__name__)
 
@@ -215,6 +223,10 @@ class Preemptor:
         self._prewarm_busy = False
         self.device_preemptions = 0
         self.host_preemptions = 0
+        # victim searches (waves or single pods) whose injected fault
+        # spent the ladder's attempts: on the card their pods requeue
+        # without a nomination, on the CPU the host oracle answers them
+        self.injected_exhaustions = 0
         # wave observability (bench solver labels + perf-matrix
         # DataItems). victims_by_tier books what actually HAPPENED: a
         # victim counts only after its eviction transaction landed, so
@@ -399,10 +411,12 @@ class Preemptor:
         plus the solver tier that produced them.
 
         The call runs through the wave ladder's ONE device tier: "cuda"
-        (K3) on the card, where any fault raises; "torch" (K3's plain
-        version) on the CPU, behind its breaker and retries -- there an
-        exhausted tier raises LadderExhausted and the callers take the
-        host oracle.
+        (K3) on the card, where any fault raises and an injected one is
+        retried in place until it exhausts the ladder; "torch" (K3's
+        plain version) on the CPU, behind its breaker and retries. An
+        exhausted tier raises LadderExhausted: the callers take the host
+        oracle on the CPU, and on the card (``_injected_exhaustion``)
+        requeue the pods.
 
         ``potentials``: per-pod iterable of candidate NodeInfos (already
         pruned of UnschedulableAndUnresolvable nodes).
@@ -673,6 +687,22 @@ class Preemptor:
             target=run, name="preempt-prewarm", daemon=True
         ).start()
 
+    def _injected_exhaustion(self, err: LadderExhausted, pods: int) -> bool:
+        """Book a victim search that exhausted the ladder. Returns True
+        when the caller takes the host oracle (the CPU); on the card only
+        an injected fault that spent its attempts is answered -- by no
+        nomination, the pods requeued for K3 -- and anything else
+        re-raises."""
+        injected = isinstance(err.__cause__, FaultInjected)
+        if self.device.type == "cuda" and not injected:
+            raise err  # the card's victim search never degrades
+        if injected:
+            self.injected_exhaustions += 1
+            flightrecorder.mark(
+                "preempt_exhausted", pods=pods, tier=self.device.type,
+            )
+        return self.device.type != "cuda"
+
     def _find_preemption_device(
         self, pod: Pod, potential, pdbs
     ) -> Tuple[Optional[Tuple[str, List[Pod], int]], str]:
@@ -706,9 +736,11 @@ class Preemptor:
                 result, tier = self._find_preemption_device(
                     pod, potential, pdbs
                 )
-            except LadderExhausted:
-                if self.device.type == "cuda":
-                    raise  # the card's victim search never degrades
+            except LadderExhausted as e:
+                if not self._injected_exhaustion(e, 1):
+                    # the card: no nomination this cycle; the caller
+                    # requeues the pod and K3 solves it again
+                    return "", [], [], TIER_CUDA
                 # the CPU's device tier is down: the host oracle below
                 # is the wave floor (counted as a host preemption)
                 logger.warning(
@@ -827,9 +859,11 @@ class Preemptor:
                 live_pods, potentials, pdbs
             )
             self.device_preemptions += len(live_pods)
-        except LadderExhausted:
-            if self.device.type == "cuda":
-                raise  # the card's victim search never degrades
+        except LadderExhausted as e:
+            if not self._injected_exhaustion(e, len(live_pods)):
+                # the card: the wave nominates no pod; the caller
+                # requeues them and the next wave solves them on K3
+                return results, []
             # the CPU's device tier is down (breaker open / faults
             # exhausted the retries): the wave still completes on the
             # per-pod host oracle with the nomination fold through the

@@ -120,6 +120,11 @@ class Scheduler:
         # over the watch; overdue pods are unbound back to the queue
         # (exactly once per incarnation). None = bind-and-forget.
         self.bind_ack_tracker = None
+        # on the card a fault of the device path (a K3 victim search on
+        # the per-pod path here; a failed batch completion in the batch
+        # scheduler) is not retried behind the kernel's back: the error
+        # is kept here and the scheduler stops (_halt_on_card_fault)
+        self.card_fault: Optional[BaseException] = None
 
     # -- profile lookup (scheduler.go:741 profileForPod) --------------------
 
@@ -426,7 +431,14 @@ class Scheduler:
                 nominated_node = self.preemptor.preempt(
                     prof, state, pod, fit_err
                 )
-            except Exception:
+            except Exception as e:
+                if self.preemptor.device.type == "cuda":
+                    # a fault of K3 on the per-pod path halts as a
+                    # batch's does (an injected fault that spent its
+                    # attempts never gets here: the pod comes back
+                    # without a nomination)
+                    self._halt_on_card_fault(e)
+                    raise
                 logger.exception("preemption for %s failed", pod.key())
         self.record_scheduling_failure(
             prof,
@@ -579,6 +591,14 @@ class Scheduler:
             with self._inflight_lock:
                 self._inflight_binds -= 1
                 self._inflight_lock.notify_all()
+
+    def _halt_on_card_fault(self, err: BaseException) -> None:
+        """A fault of the card's device path: keep the error for the
+        scheduler's owner and stop the scheduler, instead of requeueing
+        the work to meet the same fault again."""
+        logger.error("the device path failed on the card: %r", err)
+        self.card_fault = err
+        self._stop.set()
 
     def _simulate_crash(self) -> None:
         """The crash_between_assume_and_bind point fired: the process is

@@ -6803,6 +6803,23 @@ class ExtenderHarness:
         return dict(extender_binds=0, widget_pods_requeued=queued)
 
 
+class _UnreachableExtenderLines:
+    """A logging filter that drops the lines of a call to an extender that
+    cannot be reached: the ignorable extender's warning, and a failure
+    whose traceback ends in a refused connection."""
+
+    def filter(self, record) -> bool:
+        if record.getMessage().startswith("ignoring failed ignorable extender"):
+            return False
+        err = record.exc_info[1] if record.exc_info else None
+        while err is not None:
+            if isinstance(err, ConnectionRefusedError) or isinstance(
+                    getattr(err, "reason", None), ConnectionRefusedError):
+                return False
+            err = err.__cause__ or err.__context__
+        return True
+
+
 def extender(gk, device=None):
     """The ``extender`` phase: ExtenderBurst/500 with a reachable binder
     extender, then the extender unreachable, ignorable and not. Every
@@ -6823,21 +6840,22 @@ def extender(gk, device=None):
     ]
     recs = []
     # an unreachable extender's every call is logged (a requeued pod's
-    # failure with its traceback): the counts below stand for them
+    # failure with its traceback): the counts below stand for them, and
+    # only those lines are dropped -- every other error stays visible
     logs = [logging.getLogger(f"kubernetes_tpu_torch.scheduler.{m}")
             for m in ("scheduler", "extender")]
-    levels = [log.level for log in logs]
+    quiet = _UnreachableExtenderLines()
     for row, kw in cases:
         harness = ExtenderHarness(**kw)
         if not kw["reachable"]:
             for log in logs:
-                log.setLevel(logging.CRITICAL)
+                log.addFilter(quiet)
         try:
             rec = matrix_row(dict(row, extenders=[harness.config]), gk,
                              device, hooks=harness)
         finally:
-            for log, level in zip(logs, levels):
-                log.setLevel(level)
+            for log in logs:
+                log.removeFilter(quiet)
         want = {"extender-interested": WIDGET_PODS}
         solved = row["measured"] - WIDGET_PODS
         if rec["host_only"] != want or rec["device_solved"] != solved:

@@ -19,8 +19,9 @@ Tier semantics:
   again on the card (drain and redispatch, or containment). A K3 victim
   search so exhausted (a wave, or one pod's search on the per-pod path)
   nominates no pod: its pods are requeued on the ordinary backoff and
-  the next wave solves them on K3 again (scheduler/preemption.py). A
-  LadderExhausted with any other cause is a fault of the card there.
+  the next wave solves them on K3 again (scheduler/preemption.py). Any
+  other failure of that search raises CardFault, which halts the
+  scheduler.
 - ``torch``: the kernel's plain PyTorch version -- the device tier ONLY
   when the solver's tensors are on the CPU (tests). It is never a tier
   on the card: there the plain version serves nothing.
@@ -120,6 +121,13 @@ class RobustnessConfig:
 class LadderExhausted(Exception):
     """Every device/host tier failed or is open; the caller must route
     the batch to the sequential oracle."""
+
+
+class CardFault(RuntimeError):
+    """A fault of a device search on the card that no tier answers (K3's
+    victim search raises it, with the fault as its cause). The scheduler
+    that meets it halts (Scheduler._halt_on_card_fault): nothing requeues
+    the work to meet the same fault again."""
 
 
 class SolverLadder:

@@ -111,6 +111,7 @@ from kubernetes_tpu_torch.robustness.faults import (
 )
 from kubernetes_tpu_torch.robustness.ladder import (
     DEVICE_TIERS,
+    CardFault,
     LadderExhausted,
     RobustnessConfig,
     SolverLadder,
@@ -3765,15 +3766,16 @@ class BatchScheduler(Scheduler):
                     nominated, victim_uids = self.preemptor.preempt_batch(
                         prof, [(pi.pod, fe) for pi, fe, _ in items]
                     )
+            except CardFault as e:
+                # a fault of the card's victim search (K3) is not
+                # answered by an empty wave that requeues and retries
+                # it: the scheduler halts, whichever caller flushed. An
+                # injected fault that spent its attempts is not one:
+                # preempt_batch returns that wave with no nomination,
+                # and the requeue below retries it
+                self._halt_on_card_fault(e)
+                raise
             except Exception:
-                if self.device.type == "cuda":
-                    # a fault of the card's victim search (K3) is not
-                    # answered by an empty wave that requeues and retries
-                    # it: it propagates, as a batch solve's does. An
-                    # injected fault that spent its attempts is not a
-                    # fault of K3: preempt_batch returns that wave with
-                    # no nomination, and the requeue below retries it
-                    raise
                 logger.exception("batched device preemption failed")
                 nominated = [""] * len(items)
             evict_ok = victim_uids is not None

@@ -10,11 +10,12 @@ MoreImportantPod/GetPodStartTime from pkg/scheduler/util/utils.go:38-83.
 A device-eligible pod (a plain pod, see ``device_eligible``) preempts
 through the device victim search (ops/preemption.py): on the card a
 whole wave is one launch of kernel K3 (ops/preempt_kernel.py), and a
-fault there raises -- nothing steps down to the host oracle. The one
-exception is a chaos profile's injected fault (FaultInjected) that has
-spent the ladder's in-place attempts: the wave (or the single pod) gets
-no nomination this cycle, is requeued on the ordinary backoff and is
-solved again by K3 (``injected_exhaustions``). On the CPU
+fault there raises CardFault, which halts the scheduler -- nothing
+steps down to the host oracle. The one exception is a chaos profile's
+injected fault (FaultInjected) that has spent the ladder's in-place
+attempts: the wave (or the single pod) gets no nomination this cycle,
+is requeued on the ordinary backoff and is solved again by K3
+(``injected_exhaustions``). On the CPU
 the search runs K3's plain PyTorch version (the ``torch`` tier) and the
 host oracle below is the floor. Every other pod takes the host oracle,
 which is also the parity reference. Drain planning
@@ -48,6 +49,7 @@ from kubernetes_tpu_torch.robustness.faults import (
 from kubernetes_tpu_torch.robustness.ladder import (
     TIER_CUDA,
     TIER_TORCH,
+    CardFault,
     LadderExhausted,
     SolverLadder,
 )
@@ -414,9 +416,8 @@ class Preemptor:
         (K3) on the card, where any fault raises and an injected one is
         retried in place until it exhausts the ladder; "torch" (K3's
         plain version) on the CPU, behind its breaker and retries. An
-        exhausted tier raises LadderExhausted: the callers take the host
-        oracle on the CPU, and on the card (``_injected_exhaustion``)
-        requeue the pods.
+        exhausted tier raises LadderExhausted; ``_device_search`` applies
+        the card's rule to it.
 
         ``potentials``: per-pod iterable of candidate NodeInfos (already
         pruned of UnschedulableAndUnresolvable nodes).
@@ -687,30 +688,43 @@ class Preemptor:
             target=run, name="preempt-prewarm", daemon=True
         ).start()
 
-    def _injected_exhaustion(self, err: LadderExhausted, pods: int) -> bool:
-        """Book a victim search that exhausted the ladder. Returns True
-        when the caller takes the host oracle (the CPU); on the card only
-        an injected fault that spent its attempts is answered -- by no
-        nomination, the pods requeued for K3 -- and anything else
-        re-raises."""
-        injected = isinstance(err.__cause__, FaultInjected)
-        if self.device.type == "cuda" and not injected:
-            raise err  # the card's victim search never degrades
-        if injected:
-            self.injected_exhaustions += 1
-            flightrecorder.mark(
-                "preempt_exhausted", pods=pods, tier=self.device.type,
+    def _device_search(
+        self, pods: List[Pod], potentials, pdbs
+    ) -> Tuple[Optional[List[Tuple[str, List[Pod], int]]], str]:
+        """``_device_answers`` under the card's fault rule. Returns
+        (answers, tier); answers is None when an injected fault spent the
+        ladder's attempts on the card: the pods get no nomination this
+        cycle and the caller requeues them for K3. On the card every
+        other failure raises CardFault. On the CPU an exhausted ladder
+        raises LadderExhausted and the caller takes the host oracle."""
+        on_card = self.device.type == "cuda"
+        try:
+            return self._device_answers(pods, potentials, pdbs)
+        except Exception as e:
+            injected = isinstance(e, LadderExhausted) and isinstance(
+                e.__cause__, FaultInjected
             )
-        return self.device.type != "cuda"
+            if injected:
+                self.injected_exhaustions += 1
+                flightrecorder.mark(
+                    "preempt_exhausted", pods=len(pods),
+                    tier=self.device.type,
+                )
+            if not on_card:
+                raise
+            if injected:
+                return None, TIER_CUDA
+            raise CardFault(
+                f"the victim search failed on the card: {e!r}"
+            ) from e
 
     def _find_preemption_device(
         self, pod: Pod, potential, pdbs
     ) -> Tuple[Optional[Tuple[str, List[Pod], int]], str]:
-        """Single-pod wrapper over the batched device search: returns
-        (answer, tier). Raises LadderExhausted when the CPU's device
-        tier is down; the caller then takes the host oracle."""
-        answers, tier = self._device_answers([pod], [potential], pdbs)
-        return answers[0], tier
+        """Single-pod wrapper over ``_device_search``: returns (answer,
+        tier), answer None when the card requeues the pod."""
+        answers, tier = self._device_search([pod], [potential], pdbs)
+        return (answers[0] if answers is not None else None), tier
 
     def find_preemption(
         self, prof, state: CycleState, pod: Pod, fit_err: FitError
@@ -736,19 +750,18 @@ class Preemptor:
                 result, tier = self._find_preemption_device(
                     pod, potential, pdbs
                 )
-            except LadderExhausted as e:
-                if not self._injected_exhaustion(e, 1):
-                    # the card: no nomination this cycle; the caller
-                    # requeues the pod and K3 solves it again
-                    return "", [], [], TIER_CUDA
+            except LadderExhausted:
                 # the CPU's device tier is down: the host oracle below
                 # is the wave floor (counted as a host preemption)
                 logger.warning(
                     "device preemption tiers exhausted for %s; "
                     "falling to the host oracle", pod.key(),
                 )
-                result = None
-            if result is not None:
+            else:
+                if result is None:
+                    # the card: no nomination this cycle; the caller
+                    # requeues the pod and K3 solves it again
+                    return "", [], [], tier
                 self.device_preemptions += 1
                 node_name, victims, _ = result
                 if not node_name:
@@ -855,15 +868,10 @@ class Preemptor:
         if not live_pods:
             return results, []
         try:
-            answers, tier = self._device_answers(
+            answers, tier = self._device_search(
                 live_pods, potentials, pdbs
             )
-            self.device_preemptions += len(live_pods)
-        except LadderExhausted as e:
-            if not self._injected_exhaustion(e, len(live_pods)):
-                # the card: the wave nominates no pod; the caller
-                # requeues them and the next wave solves them on K3
-                return results, []
+        except LadderExhausted:
             # the CPU's device tier is down (breaker open / faults
             # exhausted the retries): the wave still completes on the
             # per-pod host oracle with the nomination fold through the
@@ -879,6 +887,12 @@ class Preemptor:
             )
             tier = TIER_HOST
             self.host_preemptions += len(live_pods)
+        else:
+            if answers is None:
+                # the card: the wave nominates no pod; the caller
+                # requeues them and the next wave solves them on K3
+                return results, []
+            self.device_preemptions += len(live_pods)
         self.wave_solver_tier = tier
         self.waves += 1
         metrics.preemption_waves.inc()

@@ -38,6 +38,7 @@ from kubernetes_tpu_torch.robustness.faults import (
     get_injector,
     poison_raise_maybe,
 )
+from kubernetes_tpu_torch.robustness.ladder import CardFault
 from kubernetes_tpu_torch.scheduler.generic import GenericScheduler
 from kubernetes_tpu_torch.scheduler.provider import default_plugins
 from kubernetes_tpu_torch.utils import flightrecorder, metrics
@@ -431,14 +432,13 @@ class Scheduler:
                 nominated_node = self.preemptor.preempt(
                     prof, state, pod, fit_err
                 )
-            except Exception as e:
-                if self.preemptor.device.type == "cuda":
-                    # a fault of K3 on the per-pod path halts as a
-                    # batch's does (an injected fault that spent its
-                    # attempts never gets here: the pod comes back
-                    # without a nomination)
-                    self._halt_on_card_fault(e)
-                    raise
+            except CardFault as e:
+                # a fault of K3 on the per-pod path halts as a batch's
+                # does; every other failure (an extender's preempt verb,
+                # an API call) is logged and the pod requeued
+                self._halt_on_card_fault(e)
+                raise
+            except Exception:
                 logger.exception("preemption for %s failed", pod.key())
         self.record_scheduling_failure(
             prof,
@@ -593,11 +593,12 @@ class Scheduler:
                 self._inflight_lock.notify_all()
 
     def _halt_on_card_fault(self, err: BaseException) -> None:
-        """A fault of the card's device path: keep the error for the
-        scheduler's owner and stop the scheduler, instead of requeueing
-        the work to meet the same fault again."""
-        logger.error("the device path failed on the card: %r", err)
-        self.card_fault = err
+        """A fault of the card's device path: keep the (first) error for
+        the scheduler's owner and stop the scheduler, instead of
+        requeueing the work to meet the same fault again."""
+        if self.card_fault is None:
+            logger.error("the device path failed on the card: %r", err)
+            self.card_fault = err
         self._stop.set()
 
     def _simulate_crash(self) -> None:

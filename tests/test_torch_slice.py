@@ -646,12 +646,14 @@ def test_a_fault_of_the_card_victim_search_raises(monkeypatch):
     """With the victim search on the card, a KernelError from K3 (here
     raised by a stand-in for the wave's device call whose launch is
     refused) propagates out of the
-    deferred wave: no host oracle answers the wave, no victim is evicted,
+    deferred wave, as the cause of the CardFault that halts the
+    scheduler: no host oracle answers the wave, no victim is evicted,
     no nomination is made."""
     import torch
 
     from kubernetes_tpu_torch.ops import preemption as preemption_ops
     from kubernetes_tpu_torch.ops.kernel_build import KernelError
+    from kubernetes_tpu_torch.robustness.ladder import CardFault
 
     server = APIServer()
     client = Client(server)
@@ -694,8 +696,10 @@ def test_a_fault_of_the_card_victim_search_raises(monkeypatch):
         # as if the solver's tensors were on the card
         sched.device = torch.device("cuda")
         sched.preemptor.device = torch.device("cuda")
-        with pytest.raises(KernelError, match="launch failed"):
+        with pytest.raises(CardFault, match="launch failed") as raised:
             sched._flush_deferred_preemptions()
+        assert isinstance(raised.value.__cause__, KernelError)
+        assert sched.card_fault is raised.value and sched._stop.is_set()
         p = sched.preemptor
         assert p.host_preemptions == 0 and p.device_preemptions == 0
         assert p.waves == 0 and not p.victims_by_tier

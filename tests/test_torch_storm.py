@@ -8,17 +8,23 @@ on the CPU.
   ``PREEMPT_SOLVE`` fires on every attempt ends with its pods requeued
   without a nomination (``Preemptor.injected_exhaustions`` moves by
   one, no host preemption, no ``card_fault``); the same wave with a
-  KernelError from K3 halts the scheduler through its committer. On the
-  per-pod path the same two cases: no nomination and a requeue, or the
-  halt (``Scheduler.handle_fit_error``) instead of a log line.
+  KernelError from K3 halts the scheduler through its committer, with a
+  CardFault caused by it. On the per-pod path the same two cases: no
+  nomination and a requeue, or the halt (``Scheduler.handle_fit_error``)
+  instead of a log line. A failure that is not K3's -- a non-ignorable
+  extender's preempt verb that cannot be reached -- is still logged and
+  the pod requeued on a scheduler named ``cuda``.
 - The storm of ``tests/test_preemption_wave.py:652`` at profile seed 42,
-  where two K3 calls each draw two fires: sixteen 4-CPU nodes filled by
-  64 low pods under a PDB of 60, then 24 high pods interleaved with 24
-  low ones. Both packages bind the whole high band, bind no incarnation
+  where the third and fourth K3 calls each draw two fires: sixteen 4-CPU
+  nodes filled by 64 low pods under a PDB of 60, then 24 high pods
+  interleaved with 24 low ones, in three bursts of eight each so that at
+  least three victim searches run however the host's load batches them. Both packages bind the whole high band, bind no incarnation
   twice and spend no PDB below zero; the port's ``PREEMPT_SOLVE`` fired
   twice within one call at least once.
 """
 
+import logging
+import socket
 import threading
 import time
 
@@ -41,6 +47,8 @@ from kubernetes_tpu_torch.client import informer as torch_informer
 from kubernetes_tpu_torch.ops import preemption as port_ops_preemption
 from kubernetes_tpu_torch.ops.kernel_build import KernelError
 from kubernetes_tpu_torch.robustness import faults as torch_faults
+from kubernetes_tpu_torch.robustness.ladder import CardFault
+from kubernetes_tpu_torch.scheduler import extender as torch_extender
 from kubernetes_tpu_torch.scheduler import scheduler as torch_scheduler
 from kubernetes_tpu_torch import testing as torch_testing
 
@@ -93,14 +101,14 @@ def _k3_fails(monkeypatch):
     return err
 
 
-def _full_cluster(batch):
+def _full_cluster(batch, extenders=None):
     """Two 2-CPU nodes full of priority-0 pods and one pending
     priority-100 pod, which only a preemption can place."""
     server = P.server.APIServer()
     client = P.client.Client(server)
     informers = P.informer.InformerFactory(server)
     sched = P.scheduler.new_scheduler(client, informers, batch=batch,
-                                      device="cpu")
+                                      device="cpu", extenders=extenders)
     mk = P.testing.make_pod
     for i in range(2):
         client.create_node(P.testing.make_node(f"n{i}").capacity(
@@ -180,7 +188,8 @@ def test_card_wave_requeues_an_injected_exhaustion_and_halts_on_k3(
         else:
             sched._committer.join(timeout=5)
             assert not sched._committer.is_alive()
-            assert sched.card_fault is err and sched._stop.is_set()
+            assert isinstance(sched.card_fault, CardFault)
+            assert sched.card_fault.__cause__ is err and sched._stop.is_set()
             assert pre.injected_exhaustions == 0
         assert not [p for p in client.list_pods()[0]
                     if p.metadata.name.startswith("low")
@@ -209,10 +218,44 @@ def test_card_per_pod_search_requeues_an_injected_exhaustion_and_halts_on_k3(
             assert _requeued_without_nomination(client, sched)
         else:
             err = _k3_fails(monkeypatch)
-            with pytest.raises(KernelError):
+            with pytest.raises(CardFault) as raised:
                 sched.attempt_schedule(pi)
-            assert sched.card_fault is err and sched._stop.is_set()
+            assert raised.value.__cause__ is err
+            assert sched.card_fault is raised.value and sched._stop.is_set()
             assert pre.injected_exhaustions == 0
+    finally:
+        sched.stop()
+        informers.stop()
+
+
+def _closed_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_card_per_pod_search_logs_an_unreachable_preempt_extender(caplog):
+    """A non-ignorable extender's preempt verb that cannot be reached is a
+    failure of the extender, not of K3: on a scheduler named ``cuda`` the
+    pod is requeued without a nomination and the scheduler runs on."""
+    ext = torch_extender.HTTPExtender(torch_extender.ExtenderConfig(
+        url_prefix=f"http://127.0.0.1:{_closed_port()}",
+        preempt_verb="preempt", ignorable=False, http_timeout_seconds=2))
+    server, client, informers, sched = _full_cluster(batch=False,
+                                                     extenders=[ext])
+    try:
+        pi = sched.queue.pop(timeout=5)
+        assert pi is not None and pi.pod.metadata.name == "high"
+        pre = sched.preemptor
+        pre.device = torch.device("cuda")
+        with caplog.at_level(logging.ERROR):
+            sched.attempt_schedule(pi)
+        assert any("preemption for default/high failed" in r.getMessage()
+                   for r in caplog.records)
+        # the extender narrowed the host oracle's candidates: K3 never ran
+        assert pre.host_preemptions == 1 and pre.device_preemptions == 0
+        assert sched.card_fault is None and not sched._stop.is_set()
+        assert _requeued_without_nomination(client, sched)
     finally:
         sched.stop()
         informers.stop()
@@ -309,14 +352,19 @@ def _storm(pkg, seed):
         assert _wait_named_bound(client, low, 60)
         sched.wait_for_inflight_binds(timeout=60)
         high = [f"high-{i}" for i in range(24)]
-        for i in range(24):
-            client.create_pod(mk(f"noise-{i}").container(
-                cpu="1", memory="128Mi").labels(app="low").priority(0).obj())
-            client.create_pod(mk(high[i]).container(
-                cpu="1", memory="128Mi").priority(100).obj())
-        assert _wait_named_bound(client, high, 120), (
-            f"{pkg.name}: the high band did not fully bind under "
-            "preemption-chaos")
+        # three bursts, each bound before the next: every burst needs a
+        # victim search of its own, so at least three run whatever the
+        # host's load merges into one wave (the third exhausts at seed 42)
+        for burst in range(3):
+            for i in range(8 * burst, 8 * burst + 8):
+                client.create_pod(mk(f"noise-{i}").container(
+                    cpu="1", memory="128Mi").labels(app="low")
+                    .priority(0).obj())
+                client.create_pod(mk(high[i]).container(
+                    cpu="1", memory="128Mi").priority(100).obj())
+            assert _wait_named_bound(client, high[:8 * burst + 8], 120), (
+                f"{pkg.name}: the high band did not fully bind under "
+                "preemption-chaos")
         sched.wait_for_inflight_binds(timeout=60)
         assert injector.fired_count(pkg.faults.FaultPoint.PREEMPT_SOLVE) >= 2
         assert _pdb_floor(server) >= 0

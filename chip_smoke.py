@@ -97,7 +97,17 @@ line is printed only when every phase passed):
    pipeline's guard: at most one full state upload and no carry
    divergence. Prints pods/s, p50/p99 pod-to-bind, the per-stage seconds
    and the pipeline's counters (speculative launches, rewinds by reason,
-   divergences, uploads, pods drained twice into one batch). Then
+   divergences, uploads, pods drained twice into one batch). The
+   measured burst runs with the flight recorder's Chrome trace armed
+   and writes it to chiprun_out/burst_trace.json; asserts one span per
+   K1 dispatch (tier "cuda", carry reuse/delta/upload, the pack, solve
+   and commit stages), every burst pod linked to exactly one solving
+   span, no jit_recompile mark after warmup() sealed the build watch,
+   scheduler_tpu_jit_compiles_total by signature equal to each kernel
+   module's builds, a whole trace with one device-track solve per
+   dispatch, and the spine's self-time (costed at a per-operation rate
+   measured in the run on a fresh FlightRecorder) under 1% of the hot
+   stages; prints the event count and the share. Then
    SchedulingBasic/500 (performance-config.yaml:19-23: 500 nodes, 500
    init and 1,000 measured pods of 250m/512Mi created one by one,
    max_batch 1,024) on a fresh stack, as the ``gang`` rows are run and
@@ -309,6 +319,17 @@ line is printed only when every phase passed):
    its replay, and the gate engaged for at least one dispatch (no row of
    the perf matrix engages it: 64Gi nodes). Prints the pipeline's
    counters, the pods drained twice into one batch, pods/s and p50/p99.
+   (c) The resident carry's handshake: SchedulingBasic/500's 500 nodes
+   at max_batch 64, batch by batch: a steady burst (one upload, no
+   divergence), a pod bound outside the scheduler (one divergence fixed
+   by a row scatter, no upload), an allocatable change (one alloc row
+   scattered), a node added and one removed between two batches (the
+   membership scatter, no upload, no repack), nodes added past the slot
+   headroom (exactly one upload and one repack), then a burst whose
+   every fourth bulk bind rejects its first slot; the downloaded carry
+   equals a fresh full pack of the host cache row for row, and every
+   solve equals its CPU replay. Prints each step's counters and
+   negotiations.
 16. ``constrained_families``: HostPort/500, NodeAffinity/5000,
    SchedulingPVs/5000 and SchedulingCSIPVs/500
    (performance-config.yaml:455-461, :160-170, :505-519), each on a
@@ -385,7 +406,11 @@ line is printed only when every phase passed):
    --healthz-bind-address 127.0.0.1:0`` with manifests of
    SchedulingBasic/500's 500 nodes and 1,000 pods as a subprocess:
    /healthz answers ok, /metrics counts 1,000 scheduled attempts, device
-   batches and no solver fallback, /debug/comparer finds nothing, and
+   batches and no solver fallback, /debug/comparer finds nothing, the
+   scrape lints clean with tests/test_metrics_exposition.py's checks
+   (escaped labels, HELP and one TYPE before each family's samples, no
+   repeated series, histogram counts equal to their +Inf buckets) and
+   carries the pod-to-bind quantile gauges with 0 < p50 <= p99, and
    SIGTERM ends it with code 0 within 30 s and no traceback.
 20. ``storm``: PriorityInversionStorm/500 (performance-config.yaml:326-343
    through ``lifecycle_row``: 500 nodes, 5,000 fill pods of 3000m/6Gi
@@ -463,8 +488,17 @@ BURST_SHAPE = dict(n=5632, b=4096, r=4, u=8)  # N_NODES + headroom, 128-padded
 GATE_SHAPE = dict(n=131072, b=512, r=4, u=8)
 
 
+#: the file ``main`` mirrors every phase line into: the end of a whole
+#: run's output does not hold its early phases
+_phase_log = None
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if _phase_log is not None:
+        _phase_log.write(line + "\n")
+        _phase_log.flush()
 
 
 def nvidia_smi_line():
@@ -2738,6 +2772,125 @@ class DrainCounter:
         self._queue.pop_batch = self._orig
 
 
+#: where a run writes what is too long for its output (.gitignore
+#: lists it)
+CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+#: the stages whose wall clock the always-on spine must stay under 1% of
+#: (tests/test_flightrecorder.py's overhead guard)
+SPINE_HOT = ("pop_batch", "pack", "device_solve", "download", "commit")
+SPINE_SHARE_MAX = 0.01
+
+
+def time_span_ops(rec, pod_links, stages, n_ops):
+    """Microseconds per full span lifecycle on ``rec``: the pod-link
+    list build the dispatch pays, begin, one stage stamp per stage,
+    finish."""
+    uids = [u for u, _, _ in pod_links]
+    t0 = time.perf_counter()
+    for _ in range(n_ops):
+        links = [(u, 0.001, 1) for u in uids]
+        span = rec.begin_batch(len(uids), pods=links)
+        for st in stages:
+            span.stage(st, 0.001)
+        span.finish(tier="cuda")
+    return (time.perf_counter() - t0) / n_ops * 1e6
+
+
+def time_mark_ops(rec, n_ops):
+    """Microseconds per mark on ``rec``."""
+    t0 = time.perf_counter()
+    for _ in range(n_ops):
+        rec.mark("fallback", tier="cuda", reason="bench")
+    return (time.perf_counter() - t0) / n_ops * 1e6
+
+
+def burst_spine(dispatched, uids, span0, t_marks, t_sealed, jit0, stages,
+                launches, tier, trace_path, trace_events):
+    """The flight-recorder spine of the measured burst, read from the
+    recorder's dump and the exported Chrome trace: one span per K1
+    dispatch (on ``tier``, with its carry decision and the pack, solve
+    and commit stages), every pod linked to exactly one solving span, no
+    build after warmup sealed the watch, the build counter equal to the
+    kernel modules' builds, the Chrome trace whole, and the spine's
+    self-time (costed at a rate measured here on a fresh recorder) under
+    1% of the hot stages."""
+    from kubernetes_tpu_torch.ops.assignment import kernel_build_counts
+    from kubernetes_tpu_torch.utils import flightrecorder, metrics
+
+    d = flightrecorder.RECORDER.dump()
+    spans = [s for s in d["spans"] if s["batch_id"] > span0]
+    by_id = {s["batch_id"]: s for s in spans}
+    ids = [p["span"].batch_id for p in dispatched]
+    if len(set(ids)) != len(ids) or any(i not in by_id for i in ids):
+        raise AssertionError("a burst dispatch has no span of its own")
+    solving = [s for s in spans if s["tier"] == tier and s["routed"] is None]
+    if sorted(s["batch_id"] for s in solving) != sorted(ids):
+        raise AssertionError(
+            f"{len(solving)} solving spans for {len(ids)} dispatches")
+    if tier == "cuda" and launches != len(solving):
+        raise AssertionError(
+            f"K1 launched {launches} times for {len(solving)} spans")
+    for s in solving:
+        if s["carry"] not in ("reuse", "delta", "upload"):
+            raise AssertionError(f"span {s['batch_id']}: carry {s['carry']}")
+        missing = {"pack", "device_solve", "commit"} - set(s["stages_ms"])
+        if missing:
+            raise AssertionError(f"span {s['batch_id']} lacks {missing}")
+    linked = {}
+    for s in solving:
+        for link in s["pods"]:
+            linked[link["uid"]] = linked.get(link["uid"], 0) + 1
+    unlinked = [u for u in uids if linked.get(u) != 1]
+    if unlinked:
+        raise AssertionError(
+            f"{len(unlinked)} burst pods not linked to exactly one span")
+    marks = [m for m in d["marks"] if m["t"] >= t_marks]
+    rebuilt = [m for m in d["marks"]
+               if m["kind"] == "jit_recompile" and m["t"] >= t_sealed]
+    if rebuilt:
+        raise AssertionError(f"a kernel was built after warmup: {rebuilt}")
+    builds = kernel_build_counts()
+    booked = {sig: metrics.jit_compiles.value(signature=sig) - jit0[sig]
+              for sig in builds}
+    if booked != builds:
+        raise AssertionError(f"builds booked {booked}, modules {builds}")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    tracks = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    solves = [e for e in events if e["ph"] == "X"
+              and e["name"].startswith("solve b=")]
+    if (len(events) != trace_events or "device" not in tracks
+            or any(e["dur"] < 0 for e in events if e["ph"] == "X")
+            or len(solves) != len(ids)):
+        raise AssertionError(
+            f"the Chrome trace holds {len(events)} events, tracks {tracks}, "
+            f"{len(solves)} device solves for {len(ids)} dispatches")
+    hot_s = sum(stages.get(k, 0.0) for k in SPINE_HOT)
+    rec = flightrecorder.FlightRecorder()
+    width = max(p["b"] for p in dispatched)
+    links = [(f"uid-{i}", 0.001, 1) for i in range(width)]
+    span_us = min(time_span_ops(rec, links, SPINE_HOT, 200) for _ in range(3))
+    mark_us = min(time_mark_ops(rec, 5000) for _ in range(3))
+    self_s = (len(spans) * span_us + len(marks) * mark_us) / 1e6
+    share = self_s / hot_s
+    if share >= SPINE_SHARE_MAX:
+        raise AssertionError(
+            f"the spine's self-time {self_s * 1e3:.3f} ms is "
+            f"{share * 100:.3f}% of the {hot_s * 1e3:.1f} ms hot stages")
+    return dict(
+        spans=len(spans), solving_spans=len(solving), marks=len(marks),
+        carry={c: sum(1 for s in solving if s["carry"] == c)
+               for c in ("reuse", "delta", "upload")},
+        jit_compiles=booked, jit_recompiles_after_warmup=0,
+        trace_path=os.path.relpath(trace_path), trace_events=trace_events,
+        device_solve_events=len(solves), span_us=span_us, mark_us=mark_us,
+        span_links=width, self_ms=self_s * 1e3, hot_ms=hot_s * 1e3,
+        share=share,
+    )
+
+
 def burst(gk, device=None, mesh=None, sk=None):
     """SchedulingBasic through the entry points (the ``burst`` phase); with
     ``mesh`` (a NodeMesh) and ``sk`` (the K4 module) the ``mesh_burst``
@@ -2746,11 +2899,17 @@ def burst(gk, device=None, mesh=None, sk=None):
     from kubernetes_tpu_torch.apiserver.server import APIServer
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.ops.assignment import kernel_build_counts
     from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
     from kubernetes_tpu_torch.testing import make_node, make_pod
-    from kubernetes_tpu_torch.utils import metrics
+    from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
     t_setup = time.perf_counter()
+    # the build watch books every build it sees from a fresh start, once
+    # per scheduler: the burst scheduler's bookings are the counter's
+    # growth from here
+    jit0 = {sig: metrics.jit_compiles.value(signature=sig)
+            for sig in kernel_build_counts()}
     server = APIServer()
     client = Client(server)
     informers = InformerFactory(server)
@@ -2774,6 +2933,7 @@ def burst(gk, device=None, mesh=None, sk=None):
     informers.wait_for_cache_sync()
     sched.queue.run()
     sched.warmup()
+    t_sealed = time.perf_counter()  # the build watch is sealed from here
     warm = [
         make_pod(f"warm-{i}").container(cpu="100m", memory="128Mi").obj()
         for i in range(MAX_BATCH)
@@ -2829,6 +2989,13 @@ def burst(gk, device=None, mesh=None, sk=None):
     if sk is not None:
         sk.launches = 0
         k4_builds = sk.builds
+    # the single-card burst runs with the Chrome trace armed: its spans
+    # and the build watch are checked below (burst_spine)
+    traced = mesh is None
+    span0 = flightrecorder.RECORDER._next_id
+    t_marks = time.perf_counter()
+    if traced:
+        flightrecorder.start_trace()
     start = time.perf_counter()
     for lo in range(0, N_PODS, 256):
         chunk = burst_pods[lo:lo + 256]
@@ -2841,6 +3008,10 @@ def burst(gk, device=None, mesh=None, sk=None):
     launches = gk.launches
     k4_launches = sk.launches if sk is not None else 0
     sched.wait_for_inflight_binds(timeout=60)
+    if traced:
+        trace_path = os.path.join(CHIPRUN_OUT, "burst_trace.json")
+        os.makedirs(CHIPRUN_OUT, exist_ok=True)
+        trace_events = flightrecorder.export_chrome_trace(trace_path)
     watch.stop()
     sched._dispatch_solve = orig_dispatch
     drains.close()
@@ -2863,12 +3034,19 @@ def burst(gk, device=None, mesh=None, sk=None):
 
     pods, _ = client.list_pods()
     placed = {p.metadata.name: p.spec.node_name for p in pods}
+    uids = [p.metadata.uid for p in pods if p.metadata.name in create_times]
     sched.stop()
     informers.stop()
 
     bound = sum(1 for n in names if placed.get(n))
     if not completed or bound != N_PODS:
         raise AssertionError(f"only {bound}/{N_PODS} burst pods bound")
+    spine = None
+    if traced:
+        spine = burst_spine(
+            dispatched, uids, span0, t_marks, t_sealed, jit0, stages,
+            launches, tier, trace_path, trace_events,
+        )
     # capacity: warm pods 100m/128Mi, burst pods 250m/512Mi, 110 pods
     per_node = {}
     for name, node in placed.items():
@@ -2934,6 +3112,7 @@ def burst(gk, device=None, mesh=None, sk=None):
         replay_seconds=replay_s, setup_seconds=setup_s,
     )
     if mesh is None:
+        rec.update(trace_armed=True, spine=spine)
         emit("burst", **rec)
         return rec
     rec.update(
@@ -5941,18 +6120,311 @@ def pipeline_int16(gk, device=None, case=INT16_CASE):
     return rec
 
 
+# case (iii), the resident carry's handshake on the card: SchedulingBasic/
+# 500's cluster (benchmarks/config/performance-config.yaml:19-23 with the
+# defaults of :9-15: 32 CPU, 64Gi, 110 pods) at max_batch 64, each step
+# driven batch by batch and held to the decision its CPU twin makes
+# (tests/test_torch_device_state.py)
+HANDSHAKE_CASE = dict(name="SchedulingBasic/500", nodes=500, max_batch=64,
+                      burst=256, step=64, final=256)
+
+
+def pipeline_handshake(gk, device=None, case=HANDSHAKE_CASE):
+    """The handshake on the card, one event at a time, each dispatch
+    landing before the next (``schedule_batch`` without the pipeline):
+
+    1. a steady burst: one full upload, no divergence;
+    2. a pod bound through the client outside the scheduler: no new
+       upload, one divergence, fixed by a row scatter;
+    3. one node's allocatable changed: no new upload, one alloc row
+       scattered;
+    4. a node added and an empty node removed between two batches of a
+       burst: no new upload, no repack, both rows ride the membership
+       scatter;
+    5. nodes added past the slot headroom: exactly one new upload and
+       exactly one repack;
+    6. a burst in which every fourth bulk bind rejects its first slot
+       (the event stream of tests/test_batch_scheduler.py:393), then a
+       quiet batch.
+
+    Then the resident carry, downloaded, equals a fresh full pack of the
+    host cache row for row in the carry's slot order, and every solve
+    equals its CPU replay."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.cache.snapshot import Snapshot
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.batch import _to_host
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.tensors import NodeTensorCache
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    tier = "cuda" if device is None else "torch"
+    t_case = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=case["max_batch"], device=device)
+    if sched.device.type != ("cuda" if device is None else device):
+        raise AssertionError(f"the scheduler solves on {sched.device}")
+
+    def node(name, cpu="32"):
+        return make_node(name).capacity(cpu=cpu, memory="64Gi",
+                                        pods=110).obj()
+
+    for i in range(case["nodes"]):
+        client.create_node(node(f"node-{i}"))
+    informers.start()
+    informers.wait_for_cache_sync()
+    sched.queue.run()
+
+    negs = []
+    orig_neg = sched._negotiate_device_state
+
+    def recording_neg(*args, **kwargs):
+        out = orig_neg(*args, **kwargs)
+        negs.append(None if out is None else dict(
+            carry_ok=out["carry_ok"], static_ok=out["static_ok"],
+            didx=[int(r) for r in out["didx"]],
+            sidx=[int(r) for r in out["sidx"]], member=out["member"]))
+        return out
+
+    dispatched, seen, calls = [], set(), []
+    orig_dispatch = sched._dispatch_solve
+    orig_solve = batch_mod.solve_packed
+    recording_dispatch, recording_solve = solve_recorders(
+        orig_dispatch, orig_solve, dispatched, seen, calls)
+    sched._negotiate_device_state = recording_neg
+    sched._dispatch_solve = recording_dispatch
+    batch_mod.solve_packed = recording_solve
+    orig_bulk = client.bind_assumed_bulk
+    gk.launches = 0
+    made = []
+
+    def create(n, prefix):
+        names = [f"{prefix}-{i}" for i in range(n)]
+        client.create_pods_bulk([
+            make_pod(nm).container(cpu="250m", memory="512Mi").obj()
+            for nm in names])
+        made.extend(names)
+        return names
+
+    def wait_cache(cond, what, timeout=30):
+        deadline = time.time() + timeout
+        while not cond():
+            if time.time() > deadline:
+                raise AssertionError(f"handshake: the cache never saw {what}")
+            time.sleep(0.01)
+
+    def settle(names, batches=None, timeout=60):
+        """Dispatch batch by batch until every named pod is bound (or
+        ``batches`` batches ran)."""
+        deadline = time.time() + timeout
+        ran = 0
+        while batches is None or ran < batches:
+            if batches is None and all(
+                    client.get_pod("default", n).spec.node_name
+                    for n in names):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"handshake: {names[0]}... did not bind")
+            if sched.schedule_batch(timeout=0.2):
+                ran += 1
+        sched.wait_for_inflight_binds(timeout=30)
+
+    def counters():
+        return dict(uploads=sched.state_uploads,
+                    divergences=sched.carry_divergences,
+                    membership_rows=sched.membership_row_patches,
+                    delta_rows=sched.delta_rows_uploaded,
+                    repacks=sched.tensor_cache.full_repacks)
+
+    steps = {}
+
+    def step(name, fn):
+        c0, n0 = counters(), len(negs)
+        fn()
+        c1 = counters()
+        steps[name] = dict({k: c1[k] - c0[k] for k in c1},
+                           negotiations=negs[n0:])
+        return steps[name]
+
+    try:
+        s1 = step("steady_burst", lambda: settle(create(case["burst"], "s")))
+        if s1["uploads"] != 1 or s1["divergences"]:
+            raise AssertionError(f"handshake: steady burst {s1}")
+
+        def external():
+            pod = make_pod("external-0").node("node-7").container(
+                cpu="1", memory="1Gi").obj()
+            client.create_pod(pod)
+            wait_cache(lambda: any(
+                p.metadata.name == "external-0"
+                for p in sched.cache._nodes["node-7"].pods), "external-0")
+            settle(create(case["step"], "e"))
+
+        s2 = step("external_bind", external)
+        first = s2["negotiations"][0]
+        if (s2["uploads"] or s2["divergences"] != 1 or first is None
+                or not first["carry_ok"] or not first["didx"]):
+            raise AssertionError(f"handshake: external bind {s2}")
+
+        def allocatable():
+            n11 = client.get_node("node-11")
+            n11.status.capacity["cpu"] += 1000
+            n11.status.allocatable["cpu"] += 1000
+            client.update_node(n11)
+            wait_cache(lambda: sched.cache._nodes["node-11"]
+                       .allocatable.milli_cpu == 33000, "node-11's cpu")
+            settle(create(case["step"], "a"))
+
+        s3 = step("allocatable_change", allocatable)
+        first = s3["negotiations"][0]
+        if s3["uploads"] or first is None or len(first["sidx"]) != 1:
+            raise AssertionError(f"handshake: allocatable change {s3}")
+
+        churned = set()
+
+        def churn():
+            names = create(2 * case["step"], "m")
+            settle(names, batches=1)
+            empty = next(n for n, ni in sorted(sched.cache._nodes.items())
+                         if not ni.pods)
+            churned.add(sched.tensor_cache._names.index(empty))
+            client.create_node(node("node-added-0"))
+            client.delete_node(empty)
+            wait_cache(lambda: "node-added-0" in sched.cache._nodes
+                       and empty not in sched.cache._nodes, "the churn")
+            settle(names)
+            churned.add(sched.tensor_cache._names.index("node-added-0"))
+
+        # the added node claims the lowest free slot, which may be the one
+        # the removed node freed: one membership row per slot churned
+        s4 = step("node_add_remove", churn)
+        member = [n for n in s4["negotiations"] if n and n["member"]]
+        if (s4["uploads"] or s4["repacks"]
+                or s4["membership_rows"] != len(churned) or len(member) != 1
+                or not churned <= set(member[0]["sidx"])):
+            raise AssertionError(
+                f"handshake: node add and remove of slots {churned}: {s4}")
+        s4["slots"] = sorted(churned)
+
+        def headroom():
+            live = sched.cache.node_count()
+            cap = sched._dev.alloc_shadow.shape[0]
+            for i in range(cap - live + 1):
+                client.create_node(node(f"node-grown-{i}"))
+            wait_cache(lambda: sched.cache.node_count() == cap + 1,
+                       "the grown nodes")
+            settle(create(case["step"], "h"))
+
+        s5 = step("headroom_passed", headroom)
+        if s5["uploads"] != 1 or s5["repacks"] != 1:
+            raise AssertionError(f"handshake: headroom passed {s5}")
+
+        bulk_calls = {"n": 0, "rejected": 0}
+
+        def flaky_bulk(assumed):
+            bulk_calls["n"] += 1
+            if bulk_calls["n"] % 4 == 0 and assumed:
+                bulk_calls["rejected"] += 1
+                errs = orig_bulk(assumed[1:])
+                return [(0, RuntimeError("synthetic bind failure"))] + [
+                    (i + 1, e) for i, e in errs]
+            return orig_bulk(assumed)
+
+        def final():
+            names = create(case["final"], "f")
+            client.bind_assumed_bulk = flaky_bulk
+            try:
+                settle(names, batches=case["final"] // case["step"])
+            finally:
+                client.bind_assumed_bulk = orig_bulk
+            settle(names)
+            settle(create(1, "quiet"))
+
+        s6 = step("rejecting_binds", final)
+        s6["binds_rejected"] = bulk_calls["rejected"]
+        if bulk_calls["rejected"] < 1:
+            raise AssertionError("handshake: no bulk bind was rejected")
+        launches = gk.launches
+    finally:
+        sched._dispatch_solve = orig_dispatch
+        batch_mod.solve_packed = orig_solve
+        sched._negotiate_device_state = orig_neg
+        client.bind_assumed_bulk = orig_bulk
+
+    # the resident carry against a fresh full pack of the host cache
+    ds = sched._dev
+    if ds.req_dev is None:
+        raise AssertionError("handshake: the resident carry was dropped")
+    dev_req = _to_host(ds.req_dev).astype(np.int32)
+    dev_nzr = _to_host(ds.nzr_dev).astype(np.int32)
+    names = list(sched.tensor_cache._names)
+    snap = Snapshot()
+    sched.cache.update_snapshot(snap)
+    fresh = NodeTensorCache(sched.tensor_cache.dims,
+                            sched.tensor_cache.topology).update(snap)
+    placed = {p.metadata.name: p.spec.node_name
+              for p in client.list_pods()[0]}
+    sched.stop()
+    informers.stop()
+    if sorted(n for n in names if n) != sorted(fresh.names):
+        raise AssertionError("handshake: the carry's slots hold other nodes")
+    for i, name in enumerate(names):
+        # a free slot holds nothing, as padding does
+        want_req = (fresh.requested[fresh.row(name)] if name
+                    else np.zeros_like(dev_req[i]))
+        want_nzr = (fresh.non_zero_requested[fresh.row(name)] if name
+                    else np.zeros_like(dev_nzr[i]))
+        if not (np.array_equal(dev_req[i], want_req)
+                and np.array_equal(dev_nzr[i], want_nzr)):
+            raise AssertionError(
+                f"handshake: carry row {i} ({name or 'free'}) differs from "
+                f"the full pack: {dev_req[i]} != {want_req}")
+    if (dev_req[len(names):] != 0).any() or (dev_nzr[len(names):] != 0).any():
+        raise AssertionError("handshake: a padding row of the carry is set")
+    if any(not placed.get(n) for n in made):
+        raise AssertionError("handshake: a pod did not bind")
+    tiers = {p["tier"] for p in dispatched}
+    if tiers != {tier}:
+        raise AssertionError(f"handshake: dispatches off {tier}: {tiers}")
+    if tier == "cuda" and launches != len(calls):
+        raise AssertionError(
+            f"handshake: K1 launched {launches} times for {len(calls)} solves")
+    want = replay_solves(calls, dispatched)
+    if any(want.get(n) != placed.get(n) for n in made):
+        raise AssertionError("handshake: placements differ from the replay")
+    rec = dict(
+        case="handshake", row=case["name"], nodes=case["nodes"],
+        max_batch=case["max_batch"], pods=len(made),
+        dispatches=len(dispatched), greedy_kernel_launches=launches,
+        steps={k: {f: v for f, v in st.items() if f != "negotiations"}
+               for k, st in steps.items()},
+        negotiations={k: st["negotiations"] for k, st in steps.items()},
+        carry_equals_full_pack=True, replay_equal=True,
+        seconds=time.perf_counter() - t_case,
+    )
+    emit("pipeline", **rec)
+    return rec
+
+
 def pipeline(gk, device=None, n_nodes=N_NODES, n_pods=N_PODS):
     """The ``pipeline`` phase: the bind-conflict burst as the scheduler
-    runs it and with its commits held, then the int16 carry
-    differential."""
+    runs it and with its commits held, the int16 carry differential, and
+    the resident carry's handshake (case iii)."""
     t0 = time.perf_counter()
     conflicts = [pipeline_conflict(gk, device, n_nodes, n_pods, hold)
                  for hold in (0.0, PIPELINE_HOLD_S)]
     int16 = pipeline_int16(gk, device)
+    hs = pipeline_handshake(gk, device)
     totals = dict(greedy_kernel_launches=sum(
                       r["greedy_kernel_launches"] for r in conflicts)
                   + int16["int16"]["greedy_kernel_launches"]
-                  + int16["int32"]["greedy_kernel_launches"])
+                  + int16["int32"]["greedy_kernel_launches"]
+                  + hs["greedy_kernel_launches"])
     emit("pipeline_phase", seconds=time.perf_counter() - t0, **totals)
     return totals
 
@@ -6484,6 +6956,14 @@ def matrix_row(row, gk, device=None, hooks=None):
         # recorded has its solve
         sched.stop()
         loop.join(timeout=60)
+        # the stopping loop lands the batches still in flight and hands
+        # their binds to the pool: let those land before the host cache
+        # is held against the apiserver's bound pods
+        if not sched.wait_for_inflight_binds(timeout=60):
+            raise AssertionError(
+                f"{name}: binds still in flight 60 s after the stop")
+        if frac < 1.0 and watch.bind_times:
+            elapsed = max(watch.bind_times.values()) - start
         k1 = gk.launches
     finally:
         watch.stop()
@@ -6589,11 +7069,20 @@ def matrix_row(row, gk, device=None, hooks=None):
             f"{name}: a fallback counter moved: {moved}; the admission sent "
             f"{sequential} pods to the sequential path"
         )
+    def handed(call):
+        # the state a solve started from: a part it was not handed it
+        # uploaded from its pieces (a cold first attempt whose re-solve
+        # then reuses what that upload left resident)
+        pieces = dict(call["pieces"])
+        return [np.asarray(pieces[k]) if t is None else batch_mod._to_host(t)
+                for k, t in zip(("alloc", "valid", "req_state", "nzr_state"),
+                                call["state"])]
+
     for first, again in resolves:
         a = next(c for c in calls if c["out"][0] is first["assignments_dev"])
         b = next(c for c in calls if c["out"][0] is again["assignments_dev"])
-        if not all(np.array_equal(batch_mod._to_host(x), batch_mod._to_host(y))
-                   for x, y in zip(a["state"], b["state"])):
+        if not all(np.array_equal(x, y)
+                   for x, y in zip(handed(a), handed(b))):
             raise AssertionError(
                 f"{name}: a gang re-solve was handed another state than its "
                 "first attempt (the carry rewind is not exact)")
@@ -7741,6 +8230,74 @@ def metric_samples(text, metric):
     return out
 
 
+# one Prometheus text-format sample line, labels escaped:
+# name{label="value",...} value (tests/test_metrics_exposition.py)
+SAMPLE_RE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\\\|\\"|\\n)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\\\|\\"|\\n)*")*\})? '
+    r'-?[0-9.e+\-]+(\.[0-9]+)?$'
+)
+
+
+def lint_exposition(body):
+    """The scrape lint of tests/test_metrics_exposition.py: every sample
+    parses (labels escaped), HELP then one TYPE precede each family's
+    samples, no series repeats, and each histogram's _count equals its
+    +Inf bucket. Returns the problems found."""
+    problems = []
+    seen_series = set()
+    headered = set()
+    help_seen = set()
+    type_of = {}
+    inf_buckets = {}
+    counts = {}
+    for ln in body.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# HELP "):
+            help_seen.add(ln.split()[2])
+            continue
+        if ln.startswith("# TYPE "):
+            parts = ln.split()
+            fam = parts[2]
+            if fam in type_of:
+                problems.append(f"second TYPE line: {fam}")
+            type_of[fam] = parts[3]
+            if fam not in help_seen:
+                problems.append(f"TYPE before HELP: {fam}")
+            headered.add(fam)
+            continue
+        if ln.startswith("#"):
+            problems.append(f"unknown comment line: {ln!r}")
+            continue
+        if not SAMPLE_RE.match(ln):
+            problems.append(f"unparseable sample: {ln!r}")
+            continue
+        series = ln.rsplit(" ", 1)[0]
+        name = series.split("{", 1)[0]
+        fam = re.sub(r"_(bucket|sum|count)$", "", name)
+        if fam not in headered and name not in headered:
+            problems.append(f"sample before HELP/TYPE: {ln!r}")
+        if series in seen_series:
+            problems.append(f"duplicate series: {series!r}")
+        seen_series.add(series)
+        value = float(ln.rsplit(" ", 1)[1])
+        if name.endswith("_bucket") and 'le="+Inf"' in series:
+            key = re.sub(r',?le="\+Inf"', "", series).replace(
+                "_bucket", "").replace("{}", "")
+            inf_buckets[key] = value
+        elif name.endswith("_count") and type_of.get(fam) == "histogram":
+            counts[series.replace("_count", "")] = value
+    for key, n in counts.items():
+        if key not in inf_buckets:
+            problems.append(f"histogram without +Inf bucket: {key!r}")
+        elif inf_buckets[key] != n:
+            problems.append(f"histogram {key!r}: _count {n} != +Inf bucket "
+                            f"{inf_buckets[key]}")
+    return problems
+
+
 def cli_row(device=None, row=CLI_ROW):
     """The operator's entry point on the card: ``python -m
     kubernetes_tpu_torch --leader-elect --healthz-bind-address 127.0.0.1:0``
@@ -7818,6 +8375,17 @@ def cli_row(device=None, row=CLI_ROW):
             if not batches or min(batches.values()) < 1 or fallbacks:
                 raise AssertionError(f"{name}: device batches {batches}, "
                                      f"fallbacks {fallbacks}")
+            # the scrape lints clean, and the callback gauges of the live
+            # pod-to-bind quantiles are collected with real estimates
+            problems = lint_exposition(text)
+            if problems:
+                raise AssertionError(f"{name}: /metrics lint: {problems[:10]}")
+            quantiles = metric_samples(
+                text, "scheduler_pod_to_bind_quantile_seconds")
+            p50 = quantiles.get('{q="0.5"}', 0.0)
+            p99 = quantiles.get('{q="0.99"}', 0.0)
+            if not 0.0 < p50 <= p99:
+                raise AssertionError(f"{name}: pod-to-bind quantiles {quantiles}")
             if any(v for v in comparer.values()):
                 raise AssertionError(f"{name}: /debug/comparer found {comparer}")
             t_term = time.perf_counter()
@@ -7838,6 +8406,8 @@ def cli_row(device=None, row=CLI_ROW):
         device_batches=int(sum(batches.values())),
         boot_to_serving_s=t_serving - t0, serving_to_scheduled_s=t_bound - t_serving,
         sigterm_to_exit_s=stop_s, rc=rc, comparer=comparer,
+        metrics_lint_clean=True, metrics_lines=len(text.splitlines()),
+        pod_to_bind_p50_s=p50, pod_to_bind_p99_s=p99,
     )
     emit("succession", **out)
     return out
@@ -7877,9 +8447,22 @@ def build_kernels(modules):
 
 
 def main():
+    global _phase_log
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    os.makedirs(CHIPRUN_OUT, exist_ok=True)
+    with open(os.path.join(CHIPRUN_OUT, "chip_smoke_phases.jsonl"), "w") as log:
+        _phase_log = log
+        try:
+            return run_phases()
+        finally:
+            _phase_log = None
+
+
+def run_phases():
+    """Every phase in order, then the kernels line, the card's line and
+    the last line."""
     from kubernetes_tpu_torch.ops import assignment as asg_mod
     from kubernetes_tpu_torch.ops import constrained_kernel as ck
     from kubernetes_tpu_torch.ops import greedy_kernel as gk

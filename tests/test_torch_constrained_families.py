@@ -30,6 +30,7 @@ import torch
 
 import kubernetes_tpu.api.types as jax_types
 import kubernetes_tpu_torch.api.types as port_types
+import kubernetes_tpu_torch.utils.flightrecorder as port_fr
 from kubernetes_tpu.apiserver.server import APIServer as JaxAPIServer
 from kubernetes_tpu.cache.snapshot import new_snapshot as jax_snapshot
 from kubernetes_tpu.client.client import Client as JaxClient
@@ -480,6 +481,16 @@ def _zoned(zones, pods, existing=()):
     return build
 
 
+def _routes(dump):
+    """What a flight-recorder dump says of the routes its batches took:
+    every span's size, tier and ``routed`` tag, and the fallback marks."""
+    spans = [(s["batch_id"], s["size"], s["tier"], s["routed"])
+             for s in dump["spans"]]
+    marks = [(m["tier"], m["reason"]) for m in dump["marks"]
+             if m["kind"] == "fallback"]
+    return f"spans (id, size, tier, routed): {spans}; fallbacks: {marks}"
+
+
 def test_anti_affinity_spreads_within_a_batch():
     pods = [
         (lambda mk, i=i: mk(f"p{i}").labels(app="db")
@@ -487,12 +498,13 @@ def test_anti_affinity_spreads_within_a_batch():
          .pod_affinity("zone", {"app": "db"}, anti=True).obj())
         for i in range(4)
     ]
+    port_fr.RECORDER.reset()
     got, sched, _, _ = _three_ways(
         _zoned([("a", "z1"), ("b", "z2"), ("c", "z3")], pods), max_batch=32
     )
     assert sorted(h for h in got.values() if h) == ["a", "b", "c"]
     assert sum(1 for h in got.values() if not h) == 1
-    assert sched.pods_fallback == 0
+    assert sched.pods_fallback == 0, _routes(port_fr.RECORDER.dump())
     assert sched.pods_solved_on_device >= 4
 
 

@@ -391,7 +391,12 @@ line is printed only when every phase passed):
    (``new_scheduler`` + ``LeaderElector`` stacks, the electors isolated
    from the global ``ha-chaos`` profile at fault seed 0, the kill a third
    of the way in): the same checks, and no batch completion failing
-   under the injected faults; prints the faults fired per point. (c)
+   under the injected faults; prints the faults fired per point. In
+   both rows a successor whose shadow holds more pods than the API bound
+   before the settle wave prints a ``carry_gap_detail`` line first: the
+   rows, the pods its batches placed there twice, their last batch and
+   the node the API bound them on (the check after the wave is
+   unchanged). (c)
    CrashRestart/5000: a ``SchedulerApp`` binds the warm pods and 2,048
    measured pods, then crashes between assume and bind on its next K1
    batch (one fire); a fresh ``SchedulerApp`` in the same process
@@ -443,15 +448,41 @@ line is printed only when every phase passed):
    (a closed port; filter and prioritize): ignorable, all 1,000 bind;
    not ignorable, the 100 widget pods stay pending with SchedulerError
    and queued while the other 900 bind through K1.
-22. ``kernels``: every ported kernel with its launches on the main path,
+22. ``ladder``: the solver ladder and the ``tpuSolver`` configuration.
+   SchedulingBasic's burst (5,000 nodes, 4,096 warm pods, max_batch
+   4,096) under each of bench.py's fault profiles chaos-default,
+   garbage-scores and flaky-watch at fault seed 0, the injector installed
+   before the scheduler is built as bench.py installs it, then bench's
+   discarded warmup trial and one measured trial of 10,000 pods: every
+   pod bound exactly once, only the "cuda" tier solving, K1's launches
+   equal to the recorded solves and each equal to its CPU replay, no pod
+   quarantined, no halt, the carry audited clean and holding exactly the
+   bound pods; each profile's line records the fires, in-place retries,
+   requeued (exhausted) batches, bisections, relists, each trial's
+   seconds, p50 and p99, and what the slowest trial's tail waited on
+   (terminal bulk binds, the unschedulable queue's leftover flushes, the
+   flight recorder's marks). Then ``device-down`` at SchedulingBasic/500's
+   size: no bind and no halt while it holds 3 s, every pod bound on K1
+   after it is lifted, nothing quarantined. Then a K1 launch that raises
+   (nodes wide enough that K1's plan refuses them): the scheduler halts
+   with a CardFault. Then ``robustness.solveTimeout: 500ms`` from YAML
+   against injected 1 s hangs: two retries in place, one requeued batch,
+   every pod bound, no late launch. Then the ``tpuSolver`` YAML cases,
+   each against its CPU twin's placements: maxBatch and batchWindow (K1),
+   ``solverMode: sinkhorn`` (K1's scored entry only), ``meshDevices: 1``
+   (``NodeMesh(["cuda:0"])``: K4, never K1) and on it a saturated
+   cluster's preemptors (K3) and an anti-affinity wave (K2); and
+   ``meshDevices: 2`` on one card refused at build.
+23. ``kernels``: every ported kernel with its launches on the main path,
    its time per launch, its plain version's time and its bound (K4: the
    batch entry at the mesh burst's full batch; K1's scored entry at
    ChurnSinkhorn/50000's batch, its launches those of that workload; K1
    adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
    ``containment``, ``pipeline``, ``constrained_families``,
-   SchedulingBasic/500, ``gang``, ``gpu``, ``succession``, ``storm`` and
-   ``extender``, K2 in ``constrained_families``, K3 in ``lifecycle``,
-   ``tenancy`` and ``storm``).
+   SchedulingBasic/500, ``gang``, ``gpu``, ``succession``, ``storm``,
+   ``extender`` and ``ladder``, K2 in ``constrained_families`` and
+   ``ladder``, K3 in ``lifecycle``, ``tenancy``, ``storm`` and ``ladder``,
+   K4 and K1's scored entry in ``ladder``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
 last line: {"ok": true, "device": {...}}. Needs a CUDA device; exits
@@ -1686,16 +1717,47 @@ def solve_recorders(orig_dispatch, orig_solve, dispatched, seen, calls):
     return recording_dispatch, recording_solve
 
 
+def host_greedy_solve(orig):
+    """``greedy_kernel.greedy_solve`` with a plain greedy solve of CPU
+    tensors answered by the numpy host greedy
+    (``robustness/ladder.host_greedy_assign``), which the CPU tests hold
+    bit-equal to K1's plain version and to the JAX package's scan, in
+    a half to a fifth of the plain loop's time; every other call goes
+    to ``orig``."""
+    from kubernetes_tpu_torch.robustness.ladder import host_greedy_assign
+
+    def solve(*args, config=None, prior=None):
+        if prior is not None or args[0].device.type != "cpu":
+            return orig(*args, config=config, prior=prior)
+        out = host_greedy_assign(*(t.numpy() for t in args), config=config)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in out)
+
+    return solve
+
+
 def replay_solves(calls, dispatched):
-    """Replay each recorded solve on the CPU through the plain versions,
-    from its pieces and the device state it was handed, in order; check
-    each against the card's answer (the assignment and the carry it
-    handed out, requested' and nzr') and return the placements the
+    """Replay each recorded solve on the CPU, from its pieces and the
+    device state it was handed, in order (the plain versions; a plain
+    greedy solve through the numpy host greedy, ``host_greedy_solve``);
+    check each against the card's answer (the assignment and the carry
+    it handed out, requested' and nzr') and return the placements the
     replay implies: pod name -> node name."""
+    from kubernetes_tpu_torch.ops import greedy_kernel
     from kubernetes_tpu_torch.ops.assignment import solve_packed
     from kubernetes_tpu_torch.ops.mesh import NodeMesh, ShardedRows
     from kubernetes_tpu_torch.scheduler.batch import _to_host
 
+    orig = greedy_kernel.greedy_solve
+    greedy_kernel.greedy_solve = host_greedy_solve(orig)
+    try:
+        return _replay_solves(calls, dispatched, solve_packed, NodeMesh,
+                              ShardedRows, _to_host)
+    finally:
+        greedy_kernel.greedy_solve = orig
+
+
+def _replay_solves(calls, dispatched, solve_packed, NodeMesh, ShardedRows,
+                   _to_host):
     by_out = {id(c["out"][0]): c for c in calls}
     want = {}
     for p in dispatched:
@@ -7508,16 +7570,70 @@ def conflict_ledger(sched):
                 carry_divergences=sched.carry_divergences)
 
 
-def settle_wave(name, server, client, sched, n=64):
+def carry_gap_detail(sched, client, dispatched, limit=20):
+    """Where the successor's shadow holds more pods than the API bound:
+    each such row (the first ``limit``), and on it every pod the
+    successor's batches placed there that the API bound elsewhere or not
+    at all, with how many times the successor placed the pod, the index
+    of its last batch that did and the node the API bound it on."""
+    with sched._shadow_lock:
+        held = np.asarray(sched._dev.req_shadow)[:, 3].copy()
+        recheck = len(sched._dev.recheck_rows)
+        ring = len(sched._dev.pending_deltas)
+    bound_on, per_node = {}, {}
+    for p in client.list_pods()[0]:
+        if p.spec.node_name:
+            bound_on[p.metadata.name] = p.spec.node_name
+            per_node[p.spec.node_name] = per_node.get(p.spec.node_name, 0) + 1
+    placed = {}  # pod -> [(batch, node)]
+    names = []
+    for j, p in enumerate(dispatched):
+        names = p["names"]
+        out = np.asarray(torch.as_tensor(p["assignments_dev"]).cpu())
+        for k in range(p["b"]):
+            a = int(out[k])
+            if a >= 0:
+                pod = p["solver_infos"][int(p["order"][k])].pod.metadata.name
+                placed.setdefault(pod, []).append((j, names[a]))
+    on_row = {}
+    for pod, where in placed.items():
+        for j, node in where:
+            if bound_on.get(pod) != node:
+                on_row.setdefault(node, set()).add(pod)
+    rows = [(r, nm, int(held[r]) - per_node.get(nm, 0))
+            for r, nm in enumerate(names) if nm
+            and int(held[r]) > per_node.get(nm, 0)]
+    twice = {pod for pod, where in placed.items() if len(where) > 1}
+    with sched._pending_cv:
+        in_flight = len(sched._pending_q)
+    return dict(
+        summary=dict(rows=len(rows), extra=sum(e for _, _, e in rows),
+                     rows_to_recheck=recheck, ring=ring, in_flight=in_flight,
+                     batches=len(dispatched), placed_twice=len(twice),
+                     queue=dict(sched.queue.num_pending())),
+        rows=[dict(row=r, node=nm, extra=e, pods=[
+            dict(pod=pod, placements=len(placed[pod]),
+                 last_batch=placed[pod][-1][0],
+                 bound_on=bound_on.get(pod))
+            for pod in sorted(on_row.get(nm, ()))])
+            for r, nm, e in rows[:limit]])
+
+
+def settle_wave(name, server, client, sched, n=64, dispatched=()):
     """One more small wave once the takeover has settled: its dispatch
     negotiates the successor's carry against its host cache. A commit the
     handover absorbed as a bind conflict (the deposed leader bound the
     pod first, under its live lease) leaves the pod in the successor's
-    carry and shadow until then. Returns the wave's pod names and the
-    carry's gap before it."""
+    carry and shadow until then. A gap above 0 before the wave emits a
+    ``carry_gap_detail`` line over the successor's ``dispatched``
+    batches. Returns the wave's pod names and the carry's gap before
+    it."""
     from kubernetes_tpu_torch.testing import make_pod
 
     gap = carry_gap(sched, client)
+    if gap:
+        emit("carry_gap_detail", row=name, gap=gap,
+             **carry_gap_detail(sched, client, dispatched))
     pods = [make_pod(f"settle-{i}").container(cpu="250m", memory="512Mi")
             .obj() for i in range(n)]
     names = [p.metadata.name for p in pods]
@@ -7738,7 +7854,8 @@ def ha_failover(gk, device=None, row=HA_FAILOVER):
         threads[0].join(timeout=60)
         if threads[0].is_alive():
             raise AssertionError(f"{name}: the deposed loop did not stop")
-        settle, gap = settle_wave(name, server, client, standby.sched)
+        settle, gap = settle_wave(name, server, client, standby.sched,
+                                  dispatched=rec.dispatched[1])
         standby.sched._stop.set()
         threads[1].join(timeout=60)
         if threads[1].is_alive():
@@ -7921,7 +8038,8 @@ def ha_chaos(gk, device=None, row=HA_CHAOS):
                  "the deposed leader to abdicate", timeout=60)
         fired = {p: injector.fired_count(p) for p in injector.profile.points}
         runs[0].join(timeout=60)
-        settle, gap = settle_wave(name, server, client, stacks[1][1])
+        settle, gap = settle_wave(name, server, client, stacks[1][1],
+                                  dispatched=rec.dispatched[1])
         stacks[1][1]._stop.set()
         runs[1].join(timeout=60)
         if any(t.is_alive() for t in runs.values()):
@@ -8428,6 +8546,726 @@ def succession(gk, device=None):
     return dict(greedy_kernel_launches=launches)
 
 
+# -- the solver ladder and the tpuSolver configuration ---------------------------
+
+#: bench.py's fault profiles over SchedulingBasic's burst (bench.py:1199-1209)
+LADDER_PROFILES = ("chaos-default", "garbage-scores", "flaky-watch")
+#: how long ``device-down`` holds before it is lifted
+DEVICE_DOWN_S = 3.0
+
+
+class TrialTrace:
+    """What a chaos trial's slowest pods waited on: every bulk bind's
+    verdict (``_bind_bulk_with_retry``: pods, failed slots) and every pass
+    of the unschedulable queue's leftover flush (pods moved), each with
+    its time."""
+
+    def __init__(self, sched):
+        self.binds, self.flushes = [], []
+        bind = sched._bind_bulk_with_retry
+        flush = sched.queue.flush_unschedulable_q_leftover
+
+        def bulk(assumed):
+            errors = bind(assumed)
+            self.binds.append((time.perf_counter(),
+                               [a.metadata.name for a in assumed],
+                               len(errors)))
+            return errors
+
+        def leftover():
+            before = sched.queue.num_pending()["unschedulable"]
+            flush()
+            moved = before - sched.queue.num_pending()["unschedulable"]
+            self.flushes.append((time.perf_counter(), moved))
+
+        sched._bind_bulk_with_retry = bulk
+        sched.queue.flush_unschedulable_q_leftover = leftover
+
+    def explain(self, start, bind_times, names, marks):
+        """The trial's tail (pods bound 5 s or more after its start): how
+        many, the bulk binds that failed terminally in the trial and how
+        many tail pods they held, the flushes that moved pods, and the
+        flight recorder's marks by kind."""
+        tail = [n for n in names if bind_times[n] - start >= 5.0]
+        terminal = [(t - start, pods) for t, pods, failed in self.binds
+                    if t >= start and pods and failed == len(pods)]
+        held = set(tail) & {p for _, pods in terminal for p in pods}
+        kinds = {}
+        for t, kind, fields in marks:
+            if t >= start:
+                key = kind if kind != "fault" else f"fault:{fields['point']}"
+                kinds[key] = kinds.get(key, 0) + 1
+        return dict(
+            tail_pods=len(tail),
+            tail_bound_s=[min((bind_times[n] - start for n in tail),
+                              default=None),
+                          max((bind_times[n] - start for n in tail),
+                              default=None)],
+            terminal_binds=[[round(t, 3), len(p)] for t, p in terminal],
+            tail_pods_in_terminal_binds=len(held),
+            leftover_flushes=[[round(t - start, 3), m] for t, m in self.flushes
+                              if t >= start and m],
+            marks=kinds,
+        )
+
+
+def chaos_burst(profile, gk, device=None):
+    """SchedulingBasic's burst (bench.py:1195-1289) under one of bench's
+    fault profiles at fault seed 0: the injector installed before the
+    scheduler is built (bench.py:1199-1209), 5,000 nodes, the warmup and
+    4,096 warm pods, then bench's discarded warmup trial and ONE measured
+    trial of 10,000 pods each (bench.py:960-1020; bench measures three).
+    Fails unless every pod binds exactly once, only the ``cuda`` tier
+    solves, K1's launches equal the recorded solves and each equals its
+    CPU replay, no node is over capacity, no pod is quarantined, the
+    scheduler never halts and its carry audits clean holding exactly the
+    bound pods. Records the fires, the in-place retries, the requeued
+    batches, the bisections, the relists, the warm burst's seconds and
+    each trial's seconds, p50 and p99, and what the tail of the slowest
+    of them waited on."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, install_injector, load_profile,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from kubernetes_tpu_torch.utils import flightrecorder, metrics
+
+    name = f"SchedulingBasic+{profile}"
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"
+    t_setup = time.perf_counter()
+    injector = FaultInjector(load_profile(profile, seed=0))
+    install_injector(injector)
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, max_batch=MAX_BATCH,
+                          device=device)
+    trace = TrialTrace(sched)
+    dispatched, seen, calls = [], set(), []
+    orig_solve = batch_mod.solve_packed
+    names_all = []
+    try:
+        for i in range(N_NODES):
+            client.create_node(make_node(f"node-{i}").capacity(
+                cpu="32", memory="64Gi", pods=110).obj())
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        sched.warmup()
+        warm = [make_pod(f"warm-{i}").container(cpu="100m", memory="128Mi")
+                .obj() for i in range(MAX_BATCH)]
+        warm_names = [p.metadata.name for p in warm]
+        watch = BindWatcher(server, warm_names)
+        warm_start = time.perf_counter()
+        client.create_pods_bulk(warm)
+        sched.start()
+        if not watch.wait(600):
+            raise AssertionError(f"{name}: the warm pods did not all bind")
+        watch.stop()
+        # the warm burst is bench's too, under the same injector: kept
+        # beside the trials so a stall there is seen where it lands
+        warm_rec = dict(trial="warm", discarded=True,
+                        seconds=max(watch.bind_times.values()) - warm_start,
+                        start=warm_start, bind_times=dict(watch.bind_times),
+                        names=warm_names)
+        sched.wait_for_inflight_binds(timeout=60)
+        setup_s = time.perf_counter() - t_setup
+        rd, rs = solve_recorders(sched._dispatch_solve, orig_solve,
+                                 dispatched, seen, calls)
+        sched._dispatch_solve = rd
+        batch_mod.solve_packed = rs
+        base = dict(
+            retries=sched.injected_retries,
+            exhaustions=sched.injected_exhaustions,
+            bisections=sched.bisections,
+            relists=counter_total(metrics.watch_relists),
+            bind_retries=metrics.bind_retries.value(),
+            uploads=sched.state_uploads,
+        )
+        tiers0 = dict(sched.ladder.solves_by_tier)
+        gk.launches = 0  # the counts of THIS run of the path
+        trials = []
+        for trial in range(2):
+            pods = [make_pod(f"burst-t{trial}-{i}").container(
+                cpu="250m", memory="512Mi").obj() for i in range(N_PODS)]
+            names = [p.metadata.name for p in pods]
+            names_all += names
+            watch = BindWatcher(server, names)
+            create_times = {}
+            start = time.perf_counter()
+            for lo in range(0, N_PODS, 256):
+                now = time.perf_counter()
+                for p in pods[lo:lo + 256]:
+                    create_times[p.metadata.name] = now
+                client.create_pods_bulk(pods[lo:lo + 256])
+            done = watch.wait(300)
+            watch.stop()
+            no_card_fault(name, [sched])
+            if not done:
+                raise AssertionError(f"{name}: trial {trial} did not bind "
+                                     f"{watch._outstanding} pods")
+            p50, p99 = latency_quantiles(watch.bind_times, create_times, names)
+            trials.append(dict(
+                trial=trial, discarded=trial == 0,
+                seconds=max(watch.bind_times[n] for n in names) - start,
+                p50_pod_to_bind_s=p50, p99_pod_to_bind_s=p99,
+                start=start, bind_times=dict(watch.bind_times), names=names))
+        sched.wait_for_inflight_binds(timeout=60)
+        launches = gk.launches
+        sched._stop.set()
+        batch_mod.solve_packed = orig_solve
+        no_card_fault(name, [sched])
+        audit = holds_bound_pods(name, sched, client)
+    finally:
+        install_injector(None)
+        batch_mod.solve_packed = orig_solve
+        sched.stop()
+        informers.stop()
+    marks = list(flightrecorder.RECORDER._marks)
+    exactly_once(name, server, names_all)
+    if over_capacity(client):
+        raise AssertionError(f"{name}: a node over capacity")
+    tiers = {k: v - tiers0.get(k, 0)
+             for k, v in sched.ladder.solves_by_tier.items()
+             if v - tiers0.get(k, 0)}
+    if set(tiers) != {tier}:
+        raise AssertionError(f"{name}: solves off the {tier} tier: {tiers}")
+    if on_card and launches != len(calls):
+        raise AssertionError(f"{name}: {launches} K1 launches for "
+                             f"{len(calls)} recorded solves")
+    if sched.queue.quarantine_parked_count() or sched.pods_fallback:
+        raise AssertionError(f"{name}: a pod was quarantined or took the "
+                             f"sequential path")
+    t_replay = time.perf_counter()
+    replay_solves(calls, dispatched)
+    replay_s = time.perf_counter() - t_replay
+    slowest = max([warm_rec] + trials, key=lambda t: t["seconds"])
+    explained = trace.explain(slowest["start"], slowest["bind_times"],
+                              slowest["names"], marks)
+    fires = {p: injector.fired_count(p) for p in injector.profile.points}
+    out = dict(
+        profile=profile, fault_seed=0, nodes=N_NODES, pods_per_trial=N_PODS,
+        warm_seconds=warm_rec["seconds"],
+        trials=[{k: v for k, v in t.items()
+                 if k not in ("start", "bind_times", "names")}
+                for t in trials],
+        fires=fires,
+        injected_retries=sched.injected_retries - base["retries"],
+        injected_exhaustions=sched.injected_exhaustions - base["exhaustions"],
+        bisections=sched.bisections - base["bisections"],
+        relists=counter_total(metrics.watch_relists) - base["relists"],
+        bind_retries=metrics.bind_retries.value() - base["bind_retries"],
+        state_uploads=sched.state_uploads - base["uploads"],
+        solves_by_tier=tiers, greedy_kernel_launches=launches,
+        solves=len(calls), dispatches=len(dispatched), audit=audit,
+        replay_equal=True, replay_seconds=replay_s, setup_seconds=setup_s,
+        slowest_trial=dict(trial=slowest["trial"],
+                           seconds=slowest["seconds"], **explained),
+    )
+    emit("ladder", row=name, **out)
+    return out
+
+
+def device_down(gk, device=None, row=SCHEDULING_BASIC_500):
+    """``device-down`` (every K1 solve fails) at SchedulingBasic/500's size
+    (performance-config.yaml:19-23): the 500 init pods bound first, then
+    the fault held for ``DEVICE_DOWN_S`` over the 1,000 measured pods and
+    lifted. The reference binds them on ``host_greedy`` meanwhile; the
+    card binds none while the fault holds, never halts and quarantines
+    nothing, and binds every pod on K1 once it is lifted. Every K1 solve
+    is replayed on the CPU and the carry audits clean."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultInjector, FaultPoint, install_injector, load_profile,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    name = "SchedulingBasic/500+device-down"
+    on_card = device is None
+    tier = "cuda" if on_card else "torch"
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH, device=device)
+    dispatched, seen, calls = [], set(), []
+    orig_solve = batch_mod.solve_packed
+    injector = FaultInjector(load_profile("device-down", seed=0))
+    try:
+        for i in range(row["nodes"]):
+            client.create_node(make_node(f"node-{i}").capacity(
+                cpu="32", memory="64Gi", pods=110).obj())
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        sched.warmup()
+        init = [make_pod(f"init-{i}").container(cpu="250m", memory="512Mi")
+                .obj() for i in range(row["init_pods"])]
+        watch = BindWatcher(server, [p.metadata.name for p in init])
+        client.create_pods_bulk(init)
+        sched.start()
+        if not watch.wait(120):
+            raise AssertionError(f"{name}: the init pods did not bind")
+        watch.stop()
+        sched.wait_for_inflight_binds(timeout=60)
+        rd, rs = solve_recorders(sched._dispatch_solve, orig_solve,
+                                 dispatched, seen, calls)
+        sched._dispatch_solve = rd
+        batch_mod.solve_packed = rs
+        exhaust0 = sched.injected_exhaustions
+        gk.launches = 0
+        install_injector(injector)
+        pods = [make_pod(f"measure-{i}").container(cpu="250m", memory="512Mi")
+                .obj() for i in range(row["measured"])]
+        names = [p.metadata.name for p in pods]
+        watch = BindWatcher(server, names)
+        client.create_pods_bulk(pods)
+        time.sleep(DEVICE_DOWN_S)
+        bound_down = len(watch.bind_times)
+        no_card_fault(name, [sched])
+        exhausted_down = sched.injected_exhaustions - exhaust0
+        install_injector(None)
+        t_lift = time.perf_counter()
+        if not watch.wait(120):
+            raise AssertionError(f"{name}: {watch._outstanding} pods unbound "
+                                 f"after the fault was lifted")
+        after_s = max(watch.bind_times.values()) - t_lift
+        watch.stop()
+        sched.wait_for_inflight_binds(timeout=60)
+        launches = gk.launches
+        sched._stop.set()
+        batch_mod.solve_packed = orig_solve
+        no_card_fault(name, [sched])
+        audit = holds_bound_pods(name, sched, client)
+    finally:
+        install_injector(None)
+        batch_mod.solve_packed = orig_solve
+        sched.stop()
+        informers.stop()
+    exactly_once(name, server, names)
+    tiers = {k for k, v in sched.ladder.solves_by_tier.items() if v}
+    # the CPU rehearsal steps down to host greedy, as the JAX package does
+    if on_card and (bound_down or not exhausted_down or tiers != {tier}
+                    or sched.pods_fallback):
+        raise AssertionError(f"{name}: {bound_down} pods bound while the "
+                             f"card was down, {exhausted_down} exhaustions, "
+                             f"tiers {tiers}")
+    if sched.queue.quarantine_parked_count():
+        raise AssertionError(f"{name}: device-down quarantined a pod")
+    if on_card and launches != len(calls):
+        raise AssertionError(f"{name}: {launches} K1 launches for "
+                             f"{len(calls)} recorded solves")
+    replay_solves(calls, [p for p in dispatched if p["tier"] == tier])
+    out = dict(
+        row=name, source=row["source"], nodes=row["nodes"],
+        pods=row["measured"], down_seconds=DEVICE_DOWN_S,
+        bound_while_down=bound_down,
+        fires=injector.fired_count(FaultPoint.DEVICE_SOLVE),
+        injected_exhaustions_while_down=exhausted_down,
+        bisections=sched.bisections,
+        seconds_to_bind_after_lift=after_s, greedy_kernel_launches=launches,
+        solves=len(calls), audit=audit, replay_equal=True,
+    )
+    emit("ladder", **out)
+    return out
+
+
+def k1_refuses(gk, device=None):
+    """A K1 launch that raises on the card, no injector involved: nodes
+    advertising so many extended resources that one CTA's staged pod
+    rows outgrow shared memory, so K1's plan refuses the shape
+    (``KernelError``). The scheduler halts with a ``CardFault`` caused by
+    it; the pod is not bound, retried or handed to a CPU tier. On the CPU
+    the plain version takes any width and binds it."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.ops.greedy_kernel import KernelError, plan_for
+    from kubernetes_tpu_torch.robustness.ladder import CardFault
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    on_card = device is None
+    r = 8
+    while True:  # the narrowest width K1's plan refuses
+        try:
+            plan_for(8, r, 1)
+        except KernelError:
+            break
+        r *= 2
+    extra = {f"example_com__r{i}": 1 for i in range(r)}
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True, device=device)
+    for i in range(8):
+        client.create_node(make_node(f"wide-{i}").capacity(
+            cpu="32", memory="64Gi", pods=110, **extra).obj())
+    informers.start()
+    informers.wait_for_cache_sync()
+    gk.launches = 0
+    client.create_pod(make_pod("wide-pod").container(cpu="250m").obj())
+    loop = sched.start()
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            if sched.card_fault is not None or any(
+                    p.spec.node_name for p in client.list_pods()[0]):
+                break
+            time.sleep(0.02)
+        loop.join(timeout=30 if on_card else 0)
+    finally:
+        sched.stop()
+        informers.stop()
+    fault = sched.card_fault
+    bound = sum(1 for p in client.list_pods()[0] if p.spec.node_name)
+    if on_card and not (
+        isinstance(fault, CardFault)
+        and isinstance(fault.__cause__, KernelError)
+        and not loop.is_alive() and bound == 0 and gk.launches == 0
+        and sched.injected_retries == 0
+    ):
+        raise AssertionError(f"K1 refusing R={r}: card fault {fault!r}, "
+                             f"{bound} bound, loop alive {loop.is_alive()}")
+    if not on_card and (fault is not None or bound != 1):
+        raise AssertionError(f"K1's plain version at R={r}: {fault!r}")
+    out = dict(row="K1Refuses/8", dims=sched.tensor_cache.dims.num_dims,
+               card_fault=repr(fault), cause=repr(getattr(fault, "__cause__",
+                                                          None)),
+               bound=bound, greedy_kernel_launches=gk.launches)
+    emit("ladder", **out)
+    return out
+
+
+def watchdog_yaml(gk, device=None, row=SCHEDULING_BASIC_500):
+    """``robustness.solveTimeout`` of 500 ms from YAML against injected
+    hangs of 1 s (``device_solve_hang`` at rate 1, three fires) on
+    SchedulingBasic/500's cluster with 200 pods: each hang trips the
+    watchdog, the injector's record marks it injected, the first is
+    retried in place, the second exhausts the batch, which is bisected
+    into K1 sub-solves whose one hang is retried again. Every pod binds on
+    ``cuda``, nothing halts, and no hung attempt launches K1 late."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.robustness.faults import (
+        FaultPoint, get_injector, install_injector,
+    )
+    from kubernetes_tpu_torch.scheduler import batch as batch_mod
+    from kubernetes_tpu_torch.scheduler.scheduler import (
+        new_scheduler_from_config,
+    )
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    name = "SchedulingBasic/500+watchdog"
+    on_card = device is None
+    cfg = load_config_from_dict({
+        "tpuSolver": {"maxBatch": 1024},
+        "robustness": {"solveTimeout": "500ms", "retryMaxAttempts": 2,
+                       "retryBackoff": "10ms"},
+        "faultInjection": {"enabled": True, "seed": 0, "points": {
+            "device_solve_hang": {"rate": 1.0, "maxFires": 3,
+                                  "hangSeconds": "1s"}}},
+    })
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler_from_config(client, informers, cfg, device=device)
+    injector = get_injector()
+    dispatched, seen, calls = [], set(), []
+    orig_solve = batch_mod.solve_packed
+    try:
+        for i in range(row["nodes"]):
+            client.create_node(make_node(f"node-{i}").capacity(
+                cpu="32", memory="64Gi", pods=110).obj())
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        rd, rs = solve_recorders(sched._dispatch_solve, orig_solve,
+                                 dispatched, seen, calls)
+        sched._dispatch_solve = rd
+        batch_mod.solve_packed = rs
+        pods = [make_pod(f"w-{i}").container(cpu="250m", memory="512Mi")
+                .obj() for i in range(200)]
+        names = [p.metadata.name for p in pods]
+        watch = BindWatcher(server, names)
+        client.create_pods_bulk(pods)
+        gk.launches = 0
+        t0 = time.perf_counter()
+        sched.start()
+        done = watch.wait(60)
+        seconds = time.perf_counter() - t0
+        watch.stop()
+        sched.wait_for_inflight_binds(timeout=30)
+        time.sleep(1.1)  # every hung attempt has woken by now
+        launches = gk.launches
+        no_card_fault(name, [sched])
+        if not done:
+            raise AssertionError(f"{name}: {watch._outstanding} pods unbound")
+    finally:
+        install_injector(None)
+        batch_mod.solve_packed = orig_solve
+        sched.stop()
+        informers.stop()
+    rec = dict(
+        row=name, solve_timeout_s=sched.ladder.config.solve_timeout_seconds,
+        hang_fires=injector.fired_count(FaultPoint.DEVICE_SOLVE_HANG),
+        injected_retries=sched.injected_retries,
+        injected_exhaustions=sched.injected_exhaustions,
+        bisections=sched.bisections, seconds=seconds,
+        greedy_kernel_launches=launches, solves=len(calls),
+        solves_by_tier={k: v for k, v in sched.ladder.solves_by_tier.items()
+                        if v},
+    )
+    if on_card and (
+        (rec["hang_fires"], rec["injected_retries"],
+         rec["injected_exhaustions"]) != (3, 2, 1)
+        or launches != len(calls) or set(rec["solves_by_tier"]) != {"cuda"}
+    ):
+        raise AssertionError(f"{name}: {rec}")
+    replay_solves(calls, [p for p in dispatched if p["tier"] != "host_greedy"])
+    rec["replay_equal"] = True
+    emit("ladder", **rec)
+    return rec
+
+
+def yaml_cluster(seed=7, nodes=64, pods=256):
+    """A seeded cluster and burst for the ``tpuSolver`` cases (sizes and
+    node shapes drawn as tests/test_torch_sinkhorn_sched.py draws them):
+    node specs and pod specs."""
+    import random
+
+    rng = random.Random(seed)
+    node_specs = [(f"s{i}", str(rng.choice([8, 16, 32]))) for i in range(nodes)]
+    pod_specs = [(f"p{i}", f"{rng.choice([100, 250, 500])}m",
+                  f"{rng.choice([128, 256])}Mi") for i in range(pods)]
+    return node_specs, pod_specs
+
+
+def yaml_case(case, device=None):
+    """One ``tpuSolver`` case through ``new_scheduler_from_config``, driven
+    by hand (informers pumped, zero backoff, every wave queued before a
+    pop) so the card and the CPU see the same batches: the placements,
+    the built knobs and each kernel's launches."""
+    import random
+
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.ops import constrained_kernel as ck
+    from kubernetes_tpu_torch.ops import greedy_kernel as gk
+    from kubernetes_tpu_torch.ops import preempt_kernel as pk
+    from kubernetes_tpu_torch.ops import shard_kernel as skm
+    from kubernetes_tpu_torch.scheduler.scheduler import (
+        new_scheduler_from_config,
+    )
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler_from_config(
+        client, informers, load_config_from_dict(case["config"]),
+        rng=random.Random(0), device=device)
+    sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
+
+    def drive(prefix, want, rounds=40):
+        for _ in range(rounds):
+            sched.schedule_batch(timeout=0.05, pipeline=False)
+            sched.wait_for_inflight_binds()
+            informers.pump()
+            sched.queue.move_all_to_active_or_backoff_queue("retry")
+            sched.queue.flush_backoff_q_completed()
+            if sum(1 for x in client.list_pods()[0] if x.spec.node_name
+                   and x.metadata.name.startswith(prefix)) >= want:
+                return
+
+    counters = (gk, "launches"), (gk, "scored_launches"), (ck, "launches"), \
+        (pk, "launches"), (skm, "launches")
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    try:
+        case["drive"](client, informers, make_node, make_pod, drive)
+    finally:
+        sched.stop()
+        informers.stop()
+    launches = dict(zip(("K1", "K1s", "K2", "K3", "K4"),
+                        (getattr(m, a) for m, a in counters)))
+    return dict(
+        placements=sorted((p.metadata.name, p.spec.node_name)
+                          for p in client.list_pods()[0]),
+        knobs=dict(max_batch=sched.max_batch, batch_window=sched.batch_window,
+                   solver_mode=sched.solver_mode,
+                   mesh=None if sched.mesh is None
+                   else [str(d) for d in sched.mesh.devices]),
+        launches=launches, card_fault=repr(sched.card_fault),
+        device_preemptions=getattr(sched.preemptor, "device_preemptions", 0),
+        fallback=sched.pods_fallback,
+    )
+
+
+def _burst_drive(client, informers, make_node, make_pod, drive):
+    node_specs, pod_specs = yaml_cluster()
+    for n, cpu in node_specs:
+        client.create_node(make_node(n).capacity(
+            cpu=cpu, memory="64Gi", pods=40).obj())
+    client.create_pods_bulk([make_pod(n).creation_timestamp(float(i))
+                             .container(cpu=c, memory=m).obj()
+                             for i, (n, c, m) in enumerate(pod_specs)])
+    informers.pump()
+    drive("p", len(pod_specs))
+
+
+def _sinkhorn_drive(client, informers, make_node, make_pod, drive):
+    # tests/test_torch_sinkhorn_sched.py's seeded shape, placed alike by
+    # both packages at that seed (no near-ties)
+    node_specs, pod_specs = yaml_cluster(seed=7, nodes=12, pods=96)
+    for n, cpu in node_specs:
+        client.create_node(make_node(n).capacity(
+            cpu=cpu, memory="64Gi", pods=40).obj())
+    client.create_pods_bulk([make_pod(n).creation_timestamp(float(i))
+                             .container(cpu=c, memory=m).obj()
+                             for i, (n, c, m) in enumerate(pod_specs)])
+    informers.pump()
+    drive("p", len(pod_specs))
+
+
+def _mesh_mixed_drive(client, informers, make_node, make_pod, drive):
+    """tests/test_config_solver.py:222's saturated cluster, then a
+    high-priority wave and a constrained wave on it: a greedy fill (K4
+    under the mesh), preemptors (K3; before any pod with required
+    anti-affinity exists, which sends preemption to the host oracle as in
+    the JAX package), then pods spreading by required anti-affinity
+    (K2)."""
+    for i in range(16):
+        client.create_node(make_node(f"n{i}").capacity(
+            cpu="8", memory="16Gi", pods=10).label(
+                "kubernetes.io/hostname", f"n{i}").obj())
+    informers.pump()
+    client.create_pods_bulk([make_pod(f"fill{i}").container(
+        cpu="3500m", memory="2Gi").priority(0).obj() for i in range(32)])
+    informers.pump()
+    drive("fill", 32)
+    client.create_pods_bulk([make_pod(f"hi{i}").container(
+        cpu="4", memory="1Gi").priority(100).obj() for i in range(8)])
+    informers.pump()
+    drive("hi", 8)
+    client.create_pods_bulk([make_pod(f"anti{i}").labels(app="anti")
+                             .pod_affinity("kubernetes.io/hostname",
+                                           {"app": "anti"}, anti=True)
+                             .container(cpu="100m", memory="64Mi").obj()
+                             for i in range(8)])
+    informers.pump()
+    drive("anti", 8)
+
+
+YAML_CASES = [
+    dict(name="tpuSolver maxBatch+batchWindow",
+         config={"tpuSolver": {"maxBatch": 32, "batchWindow": "20ms",
+                               "solverMode": "greedy"}},
+         drive=_burst_drive, kernels=("K1",)),
+    dict(name="tpuSolver solverMode: sinkhorn",
+         config={"tpuSolver": {"maxBatch": 32, "solverMode": "sinkhorn"}},
+         drive=_sinkhorn_drive, kernels=("K1s",)),
+    dict(name="tpuSolver meshDevices: 1",
+         config={"tpuSolver": {"meshDevices": 1, "maxBatch": 32}},
+         drive=_burst_drive, kernels=("K4",)),
+    dict(name="tpuSolver meshDevices: 1, mixed",
+         config={"tpuSolver": {"meshDevices": 1}},
+         drive=_mesh_mixed_drive, kernels=("K4", "K2", "K3")),
+]
+
+
+def yaml_solver(device=None):
+    """The ``tpuSolver`` YAML on the card, each case against its CPU twin
+    (the same config with ``device="cpu"``): equal placements, the knobs
+    as configured, no card fault, no sequential fallback, and each case's
+    kernels launched (``maxBatch``: K1; ``sinkhorn``: K1's scored entry
+    and no plain K1; ``meshDevices: 1``: ``NodeMesh(["cuda:0"])``, K4 for
+    the greedy batches and never K1, K2 for the anti-affinity wave, K3
+    for the preemptors). Then ``meshDevices: 2`` on one card must fail at
+    build with the port's message, not fall back."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.config.loader import load_config_from_dict
+    from kubernetes_tpu_torch.scheduler.scheduler import (
+        new_scheduler_from_config,
+    )
+
+    on_card = device is None
+    totals = dict(K1=0, K1s=0, K2=0, K3=0, K4=0)
+    for case in YAML_CASES:
+        got = yaml_case(case, device=device)
+        want = yaml_case(case, device="cpu")
+        if got["placements"] != want["placements"]:
+            diff = [a for a, b in zip(got["placements"], want["placements"])
+                    if a != b]
+            raise AssertionError(f"{case['name']}: placements differ from "
+                                 f"the CPU twin's, e.g. {diff[:3]}")
+        if not all(node for _, node in got["placements"]) or got["fallback"]:
+            raise AssertionError(f"{case['name']}: {got}")
+        if got["card_fault"] != "None":
+            raise AssertionError(f"{case['name']}: {got['card_fault']}")
+        la = got["launches"]
+        if on_card and (
+            any(not la[k] for k in case["kernels"])
+            or ("K4" in case["kernels"] and la["K1"])
+            or ("K1s" in case["kernels"] and la["K1"])
+        ):
+            raise AssertionError(f"{case['name']}: launches {la}")
+        for k in totals:
+            totals[k] += la[k]
+        emit("ladder", row=case["name"], config=case["config"],
+             knobs=got["knobs"], launches=la, pods=len(got["placements"]),
+             placements_equal_cpu_twin=True,
+             device_preemptions=got["device_preemptions"])
+    refused = None
+    if on_card:
+        server = APIServer()
+        try:
+            new_scheduler_from_config(
+                Client(server), InformerFactory(server),
+                load_config_from_dict({"tpuSolver": {"meshDevices": 2}}))
+        except ValueError as e:
+            refused = str(e)
+        if refused is None or "meshDevices=2" not in refused:
+            raise AssertionError(f"meshDevices: 2 on one card built: "
+                                 f"{refused!r}")
+        emit("ladder", row="tpuSolver meshDevices: 2", refused=refused)
+    return totals
+
+
+def ladder_phase(gk, device=None):
+    """The solver ladder and the ``tpuSolver`` configuration on the card
+    (the ``ladder`` phase)."""
+    t0 = time.perf_counter()
+    chaos = [chaos_burst(p, gk, device=device) for p in LADDER_PROFILES]
+    down = device_down(gk, device=device)
+    k1_refuses(gk, device=device)
+    wd = watchdog_yaml(gk, device=device)
+    yaml = yaml_solver(device=device)
+    launches = (sum(c["greedy_kernel_launches"] for c in chaos)
+                + down["greedy_kernel_launches"]
+                + wd["greedy_kernel_launches"] + yaml["K1"])
+    emit("ladder_phase", seconds=time.perf_counter() - t0,
+         greedy_kernel_launches=launches, yaml_launches=yaml)
+    return dict(greedy_kernel_launches=launches, scored_kernel_launches=yaml[
+        "K1s"], constrained_kernel_launches=yaml["K2"],
+        preempt_kernel_launches=yaml["K3"], shard_kernel_launches=yaml["K4"])
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -8512,6 +9350,7 @@ def run_phases():
     succ = succession(gk)
     st = storm(gk, pk)
     ext = extender(gk)
+    lad = ladder_phase(gk)
     kernels = [dict(
         name="greedy_solve",
         route="cuda",
@@ -8529,7 +9368,8 @@ def run_phases():
         + gpu["greedy_kernel_launches"]
         + succ["greedy_kernel_launches"]
         + st["greedy_kernel_launches"]
-        + ext["greedy_kernel_launches"],
+        + ext["greedy_kernel_launches"]
+        + lad["greedy_kernel_launches"],
         max_abs_err=max_err,
         ms=timing["ms"],
         plain_ms=timing["plain_ms"],
@@ -8541,7 +9381,8 @@ def run_phases():
         route="cuda",
         source="kubernetes_tpu_torch/csrc/greedy_solve.cu",
         replaces="kubernetes_tpu/ops/assignment.py:1576",
-        launches=churn["scored_kernel_launches"],
+        launches=churn["scored_kernel_launches"]
+        + lad["scored_kernel_launches"],
         max_abs_err=sk_max_err,
         ms=sk_timing["ms"],
         plain_ms=sk_timing["plain_ms"],
@@ -8554,7 +9395,8 @@ def run_phases():
         source="kubernetes_tpu_torch/csrc/constrained_solve.cu",
         replaces="kubernetes_tpu/ops/pallas_constrained.py:182",
         launches=sum(r["constrained_kernel_launches"] for r in rows)
-        + fam["constrained_kernel_launches"],
+        + fam["constrained_kernel_launches"]
+        + lad["constrained_kernel_launches"],
         max_abs_err=c_max_err,
         ms=c_timing["ms"],
         plain_ms=c_timing["plain_ms"],
@@ -8569,7 +9411,8 @@ def run_phases():
         launches=pre["preempt_kernel_launches"]
         + life["preempt_kernel_launches"]
         + ten["preempt_kernel_launches"]
-        + st["preempt_kernel_launches"],
+        + st["preempt_kernel_launches"]
+        + lad["preempt_kernel_launches"],
         max_abs_err=p_max_err,
         ms=p_timing["ms"],
         plain_ms=p_timing["plain_ms"],
@@ -8581,7 +9424,8 @@ def run_phases():
         route="cuda",
         source="kubernetes_tpu_torch/csrc/shard_candidate.cu",
         replaces="kubernetes_tpu/ops/pallas_solver.py:193",
-        launches=m_rec["shard_kernel_launches"],
+        launches=m_rec["shard_kernel_launches"]
+        + lad["shard_kernel_launches"],
         max_abs_err=s_max_err,
         ms=s_timing["ms"],
         plain_ms=s_timing["plain_ms"],

@@ -16,7 +16,11 @@ Tier semantics:
   ``solve_retries{tier="cuda"}`` and ``injected_retries``); once the
   attempts are spent the ladder raises LadderExhausted with the
   FaultInjected as its cause, and the batch scheduler solves the batch
-  again on the card (drain and redispatch, or containment). A K3 victim
+  again on the card (drain and redispatch, or containment). An injected
+  hang (``device_solve_hang``) that outlasts the watchdog is such a
+  fault too: the batch scheduler tells the ladder, from the hang the
+  injector handed that attempt, that its SolveTimeout was injected; a
+  SolveTimeout with no injected hang behind it is the card's. A K3 victim
   search so exhausted (a wave, or one pod's search on the per-pod path)
   nominates no pod: its pods are requeued on the ordinary backoff and
   the next wave solves them on K3 again (scheduler/preemption.py). Any
@@ -52,7 +56,11 @@ from kubernetes_tpu_torch.robustness.circuit import (
     Watchdog,
 )
 from kubernetes_tpu_torch.ops.greedy_kernel import KernelError
-from kubernetes_tpu_torch.robustness.faults import FaultInjected, PoisonError
+from kubernetes_tpu_torch.robustness.faults import (
+    FaultInjected,
+    FaultPoint,
+    PoisonError,
+)
 from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 T = TypeVar("T")
@@ -161,11 +169,17 @@ class SolverLadder:
         self,
         attempts: List[Tuple[str, Callable[[], T]]],
         label: str = "batch",
+        injected_hang: Optional[Callable[[], bool]] = None,
     ) -> Tuple[str, T]:
         """Try ``attempts`` -- ordered (tier, thunk) pairs -- down the
         ladder. Returns (tier, result) from the first success. Raises
         LadderExhausted when every tier fails or is skipped; the caller
-        then takes the sequential path (and counts it)."""
+        then takes the sequential path (and counts it).
+
+        ``injected_hang``: whether the attempt that just timed out drew
+        an injected hang. On a card tier such a SolveTimeout is an
+        injected fault (retried in place, then LadderExhausted); every
+        other SolveTimeout there raises at once."""
         last_error: Optional[BaseException] = None
         enabled = self.config.enabled
         for idx, (tier, thunk) in enumerate(attempts):
@@ -182,7 +196,7 @@ class SolverLadder:
                 )
                 continue
             try:
-                result = self._attempt_tier(tier, thunk)
+                result = self._attempt_tier(tier, thunk, injected_hang)
             except Exception as e:  # noqa: BLE001 - filtered below
                 if isinstance(e, KernelError) or (
                     tier in CARD_TIERS
@@ -235,7 +249,10 @@ class SolverLadder:
             return attempts[idx + 1][0]
         return TIER_SEQUENTIAL
 
-    def _attempt_tier(self, tier: str, thunk: Callable[[], T]) -> T:
+    def _attempt_tier(
+        self, tier: str, thunk: Callable[[], T],
+        injected_hang: Optional[Callable[[], bool]] = None,
+    ) -> T:
         """One tier's attempt: watchdog around each try, in-place retries
         with exponential backoff before giving up on the tier."""
         cfg = self.config
@@ -250,9 +267,23 @@ class SolverLadder:
             attempt += 1
             try:
                 return self.watchdog.call(thunk, timeout, tier=tier)
-            except SolveTimeout:
-                raise  # a hang is terminal for the tier (no retry:
-                # retrying would park another worker on a wedged link)
+            except SolveTimeout as timeout_err:
+                if not (
+                    tier in CARD_TIERS
+                    and injected_hang is not None
+                    and injected_hang()
+                ):
+                    raise  # a hang is terminal for the tier (no retry:
+                    # retrying would park another worker on a wedged
+                    # link)
+                # the injector hung this attempt on purpose: the card's
+                # answer to an injected fault, retried in place
+                injected = FaultInjected(FaultPoint.DEVICE_SOLVE_HANG)
+                if attempt >= max_attempts:
+                    raise injected from timeout_err
+                metrics.solve_retries.inc(tier=tier)
+                self.injected_retries += 1
+                cfg.sleep(cfg.retry.backoff_for_attempt(attempt))
             except (PoisonError, KernelError):
                 raise  # persistent (a poison pod, a kernel that cannot
                 # build or launch): in-place retries only burn backoff

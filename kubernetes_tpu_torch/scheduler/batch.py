@@ -110,6 +110,7 @@ from kubernetes_tpu_torch.robustness.faults import (
     poison_stamp_maybe,
 )
 from kubernetes_tpu_torch.robustness.ladder import (
+    CARD_TIERS,
     DEVICE_TIERS,
     CardFault,
     LadderExhausted,
@@ -424,6 +425,13 @@ def _delta_slot_pieces(
     ]
 
 
+def _garbage(head: np.ndarray, names) -> bool:
+    """A downloaded assignment naming a node index out of range."""
+    return bool(head.size) and bool(
+        (head < NO_NODE).any() or (head >= len(names)).any()
+    )
+
+
 def _audit_checksum_host(arr: np.ndarray) -> Tuple[int, int]:
     """Order-independent wrapping checksum pair (plain sum + row-weighted
     sum, both mod 2^32) of a host array. Must match
@@ -478,6 +486,38 @@ def _audit_checksum_dev(arr):
     return _wrap_i32(a.sum()), _wrap_i32((a * w).sum())
 
 
+class _Delta(tuple):
+    """One mirrored batch's per-row adds in the pending ring,
+    ``(node_rows [K], req_rows [K, R], nzr_rows [K, 2])``, with ``stamp``:
+    a one-slot list, shared by every slice of the entry, that the
+    committer sets to the commit ordinal (``BatchScheduler._commit_seq``)
+    once the batch's commit has finished writing the host cache. A host
+    pack taken after that ordinal shows the batch's assumes and whatever
+    later forget undid one of them, so the handshake may no longer read
+    the batch as host lag."""
+
+    stamp = (None,)
+
+
+def _slice_delta(entry, keep) -> _Delta:
+    """``entry`` restricted to the rows ``keep`` selects, sharing its
+    stamp."""
+    out = _Delta(a[keep] for a in entry)
+    out.stamp = getattr(entry, "stamp", _Delta.stamp)
+    return out
+
+
+def _host_shows(delta, committed_through) -> bool:
+    """Did the host pack of a dispatch that read ``committed_through``
+    before its snapshot see ``delta``'s commit land?"""
+    done = getattr(delta, "stamp", _Delta.stamp)[0]
+    return (
+        committed_through is not None
+        and done is not None
+        and done <= committed_through
+    )
+
+
 class _DeviceNodeState:
     """Device-resident node tensors + the generation-handshake
     bookkeeping that validates their reuse.
@@ -500,6 +540,13 @@ class _DeviceNodeState:
     bind failures) are divergences: they are scatter-patched onto the
     resident state as (indices, rows) -- or, with work in flight or too
     many rows, resolved by a counted full upload. Never silently wrong.
+
+    Only a batch whose commit the host pack does not show yet is host
+    lag. Once it shows, the batch's delta leaves the ring: a placement
+    its commit then forgot (a bind that failed terminally, a fenced
+    commit, a bind conflict) differs from the shadow at depth 0 and is
+    a divergence, where peeling the delta would have read it as lag and
+    left the placement in the carry for good.
     """
 
     def __init__(self) -> None:
@@ -526,7 +573,8 @@ class _DeviceNodeState:
         self.corrupt_row = 0
         # per-batch expected row deltas the host pack may not have shown
         # yet: (node_rows [K], req_rows [K, R], nzr_rows [K, 2]), newest
-        # last (replaces the retired full-array shadow_gens ring)
+        # last (replaces the retired full-array shadow_gens ring); each
+        # a _Delta stamped when its batch's commit lands
         self.pending_deltas: "collections.deque" = collections.deque(
             maxlen=_SHADOW_RING_CAP
         )
@@ -625,6 +673,10 @@ class BatchScheduler(Scheduler):
         self.membership_row_patches = 0
         self._dev = _DeviceNodeState()
         self._shadow_lock = threading.Lock()
+        # commits landed in the host cache (under _shadow_lock); a
+        # dispatch reads it before its snapshot to tell host lag from a
+        # commit the host already shows (see _Delta)
+        self._commit_seq = 0
         # pipelined batches flow dispatcher -> committer through this
         # bounded FIFO; the committer thread owns download + commit so the
         # dispatcher never blocks on a serving-link round trip
@@ -902,7 +954,7 @@ class BatchScheduler(Scheduler):
             # requeue the batch's pods (they retry on whatever tier the
             # breakers now route to) and drop the stale carry
             logger.exception("synchronous batch completion failed")
-            self._recover_failed_batch(pending)
+            self._recover_failed_batch(pending, e)
 
     # -- gang all-or-nothing group masks (SURVEY stage 6) --------------------
 
@@ -1395,7 +1447,7 @@ class BatchScheduler(Scheduler):
                     self._halt_on_card_fault(e)
                     raise
                 logger.exception("batch commit crashed")
-                self._recover_failed_batch(p)
+                self._recover_failed_batch(p, e)
             finally:
                 with self._pending_cv:
                     self._pending_q.popleft()
@@ -1407,18 +1459,21 @@ class BatchScheduler(Scheduler):
 
     def _halts_on_card(self, err: BaseException) -> bool:
         """Whether a failed batch completion stops the scheduler: on the
-        card it does, unless an injected device loss voided the batch
-        (its pods requeue, as on the CPU)."""
+        card it does, unless an injected device loss voided the batch or
+        an injected fault outlasted its in-place retries (its pods
+        requeue)."""
         return self.device.type == "cuda" and not isinstance(
-            err, DeviceLostInFlight
+            err, (DeviceLostInFlight, FaultInjected)
         )
 
-    def _recover_failed_batch(self, p) -> None:
+    def _recover_failed_batch(self, p, err=None) -> None:
         """A committer crash (serving-link error mid-download, commit
         bug) must not strand the batch's pods as Pending-forever: every
         pod not already assumed goes back through the failure path
         (requeue with backoff + condition), and the device carry is
-        dropped since the batch's true placements are unknown."""
+        dropped since the batch's true placements are unknown. On the
+        card an injected fault ``err`` requeues the pods on the backoff
+        clock for K1, as an exhausted solve does."""
         with self._shadow_lock:
             self._dev.invalidate_carry()
         try:
@@ -1426,6 +1481,12 @@ class BatchScheduler(Scheduler):
                 self._flush_deferred_preemptions()
         except Exception:
             logger.exception("flushing deferred preemptions on recovery")
+        if self.device.type == "cuda" and isinstance(err, FaultInjected):
+            self.injected_exhaustions += 1
+            self._requeue_for_card(
+                p["solver_infos"], p["cycle"], f"injected fault: {err}"
+            )
+            return
         self._requeue_unplaced(
             p["solver_infos"], p["cycle"], "batch commit failed"
         )
@@ -1505,7 +1566,7 @@ class BatchScheduler(Scheduler):
                         self._halt_on_card_fault(e)
                         raise
                     logger.exception("drain commit failed")
-                    self._recover_failed_batch(pend)
+                    self._recover_failed_batch(pend, e)
             return
         with self._pending_cv:
             while self._pending_q:
@@ -1584,17 +1645,16 @@ class BatchScheduler(Scheduler):
             scrubbed = collections.deque(
                 maxlen=ds.pending_deltas.maxlen
             )
-            for rows, req_rows, nzr_rows in ds.pending_deltas:
+            for entry in ds.pending_deltas:
+                rows = entry[0]
                 keepm = np.fromiter(
                     (int(r) not in mset for r in rows),
                     dtype=bool, count=len(rows),
                 )
                 if keepm.all():
-                    scrubbed.append((rows, req_rows, nzr_rows))
+                    scrubbed.append(entry)
                 elif keepm.any():
-                    scrubbed.append(
-                        (rows[keepm], req_rows[keepm], nzr_rows[keepm])
-                    )
+                    scrubbed.append(_slice_delta(entry, keepm))
                 # entries fully on churned slots drop: nothing left to
                 # confirm
             ds.pending_deltas = scrubbed
@@ -1602,7 +1662,7 @@ class BatchScheduler(Scheduler):
 
     def _negotiate_device_state(
         self, nt, node_requested, node_nzr, overlaid,
-        pending_exists, unmirrored_exists=None,
+        pending_exists, unmirrored_exists=None, committed_through=None,
     ):
         """Decide how this dispatch's node state reaches the device and
         reconcile the handshake bookkeeping. Returns None when in-flight
@@ -1629,6 +1689,12 @@ class BatchScheduler(Scheduler):
         carry, so every placement must have landed in the cache) still
         gates on ``pending_exists``. Defaults to ``pending_exists``
         (the conservative pre-pipelining behavior) when not given.
+
+        ``committed_through`` is ``_commit_seq`` as the dispatch read it
+        before taking the snapshot ``nt`` was packed from: every pending
+        delta whose commit had landed by then leaves the ring first, so
+        only batches the host pack really trails are peeled as lag. None
+        (a caller with no snapshot ordinal) keeps every delta.
         """
         if unmirrored_exists is None:
             unmirrored_exists = pending_exists
@@ -1636,6 +1702,13 @@ class BatchScheduler(Scheduler):
         d = nt.delta
         empty = np.zeros(0, dtype=np.int64)
         with self._shadow_lock:
+            ds.pending_deltas = collections.deque(
+                (
+                    e for e in ds.pending_deltas
+                    if not _host_shows(e, committed_through)
+                ),
+                maxlen=ds.pending_deltas.maxlen,
+            )
             layout_ok = (
                 d is not None
                 and ds.alloc_dev is not None
@@ -2003,6 +2076,7 @@ class BatchScheduler(Scheduler):
         )
 
         snapshot = self.algorithm.snapshot
+        committed_through = self._commit_seq
         self.cache.update_snapshot(snapshot)
         # existing pods with required anti-affinity constrain EVERY
         # incoming pod symmetrically (filtering.go:404) -- such clusters
@@ -2014,6 +2088,7 @@ class BatchScheduler(Scheduler):
             has_affinity = True
             has_affinity_terms = True
             if drained(True):
+                committed_through = self._commit_seq
                 self.cache.update_snapshot(snapshot)
         # existing pods with symmetric scoring terms make EVERY batch's
         # preferred-affinity family live (scoring.go:111): the in-flight
@@ -2024,6 +2099,7 @@ class BatchScheduler(Scheduler):
         if not score_dynamic and cluster_ipa:
             score_dynamic = True
             if drained(True):
+                committed_through = self._commit_seq
                 self.cache.update_snapshot(snapshot)
                 cluster_ipa = cluster_has_affinity_scoring(snapshot)
         if nominated_by_node and (
@@ -2284,6 +2360,7 @@ class BatchScheduler(Scheduler):
             nt, node_requested, node_nzr, overlaid,
             pending_exists=self._pending_exists(),
             unmirrored_exists=self._unmirrored_exists(),
+            committed_through=committed_through,
         )
         if neg is None and self._await_mirrors():
             # the blocked path (membership adopt / divergence repair)
@@ -2293,8 +2370,9 @@ class BatchScheduler(Scheduler):
             # ms) and renegotiate before paying a full pipeline drain
             retry = self._negotiate_device_state(
                 nt, node_requested, node_nzr, overlaid,
-                    pending_exists=self._pending_exists(),
+                pending_exists=self._pending_exists(),
                 unmirrored_exists=False,
+                committed_through=committed_through,
             )
             if retry is not None:
                 self.speculative_rewinds += 1
@@ -2408,6 +2486,15 @@ class BatchScheduler(Scheduler):
         req_in = ds.req_dev if carry_ok else None
         nzr_in = ds.nzr_dev if carry_ok else None
 
+        # the hang the injector handed each device attempt, newest last:
+        # the ladder reads it to tell an injected hang from the card's
+        hangs: List[float] = []
+        on_card = self._device_tier() in CARD_TIERS
+        watchdog_s = (
+            self.ladder.config.solve_timeout_seconds
+            if self.ladder.config.enabled else 0.0
+        )
+
         def run_device():
             if poison_key is not None:
                 raise PoisonError(poison_key)
@@ -2416,8 +2503,13 @@ class BatchScheduler(Scheduler):
                 hang = inj.hang_seconds_maybe(
                     FaultPoint.DEVICE_SOLVE_HANG
                 )
+                hangs.append(hang)
                 if hang > 0:
                     time.sleep(hang)
+                    if on_card and 0 < watchdog_s <= hang:
+                        # the watchdog gave up on this attempt: a wedged
+                        # device answers nothing, so no late launch
+                        raise FaultInjected(FaultPoint.DEVICE_SOLVE_HANG)
                 inj.raise_maybe(FaultPoint.DEVICE_SOLVE)
             return solve_packed(
                 pieces,
@@ -2472,9 +2564,15 @@ class BatchScheduler(Scheduler):
         )
         try:
             t_solve = time.perf_counter()
+            # only the card's tier reads the hangs (the CPU's ladder
+            # answers a timeout as the JAX package does)
+            hang_kw = (
+                {"injected_hang": lambda: bool(hangs) and hangs[-1] > 0}
+                if on_card else {}
+            )
             with timeline.span("solve_dispatch"):
                 tier, out = self.ladder.run(
-                    attempts, label=f"batch b={b}"
+                    attempts, label=f"batch b={b}", **hang_kw
                 )
             dt_solve = time.perf_counter() - t_solve
             self._stage_add("device_solve", dt_solve)
@@ -2489,7 +2587,8 @@ class BatchScheduler(Scheduler):
                 )
             self._jit_watch.refresh()
         except LadderExhausted as exhaust_err:
-            if isinstance(exhaust_err.__cause__, FaultInjected):
+            injected = isinstance(exhaust_err.__cause__, FaultInjected)
+            if injected:
                 self.injected_exhaustions += 1
             with self._shadow_lock:
                 ds.invalidate_carry()
@@ -2537,7 +2636,20 @@ class BatchScheduler(Scheduler):
                 poisoned=isinstance(
                     exhaust_err.__cause__, PoisonError
                 ),
+                injected=injected and on_card,
             )
+        except (CardFault, SchedulerCrashed):
+            raise
+        except Exception as card_err:
+            if not on_card:
+                raise
+            # a fault of the card's solve (a kernel that cannot launch,
+            # a CUDA error, a hang no injector made): the scheduler
+            # halts on it, it never requeues the work to meet it again
+            span.finish(routed="card_fault")
+            raise CardFault(
+                f"the solve failed on the card: {card_err!r}"
+            ) from card_err
         assignments_dev, req_out, nzr_out, alloc_out, valid_out = out
         if tier == TIER_HOST_GREEDY:
             # the host tier solved from host state and no device solve
@@ -2666,7 +2778,7 @@ class BatchScheduler(Scheduler):
 
     def _contain_exhausted_batch(
         self, solver_infos: List[PodInfo], pod_scheduling_cycle: int,
-        span, inactive_uids, poisoned: bool = False,
+        span, inactive_uids, poisoned: bool = False, injected: bool = False,
     ):
         """Disposition of a ladder-exhausted batch with nothing in
         flight. Tracks the crash-loop signature (an identical batch
@@ -2674,8 +2786,11 @@ class BatchScheduler(Scheduler):
         then: multi-pod batches take the bisection search, a
         crash-looping singleton goes straight to quarantine, and
         everything else (containment off, gang batches, first-time
-        singletons) keeps the sequential-floor fallback."""
-        crashloop = self._note_exhaust_sig(solver_infos)
+        singletons) keeps the sequential-floor fallback. ``injected``
+        (the card, an injected fault's exhaustion) is never a crash
+        loop: the fault is the injector's, not the batch's, so no pod
+        of it is quarantined for it."""
+        crashloop = not injected and self._note_exhaust_sig(solver_infos)
         if crashloop:
             metrics.exhausted_crashloops.inc()
             flightrecorder.mark(
@@ -2786,8 +2901,12 @@ class BatchScheduler(Scheduler):
         # (pod_info, typed_poison) -- a singleton isolated by a TYPED
         # PoisonError always quarantines; untyped isolations are only
         # trusted once some sibling sub-solve succeeded (else they are
-        # indistinguishable from a systemic device failure)
+        # indistinguishable from a systemic device failure). On the card
+        # a singleton whose sub-solve an injected fault exhausted counts
+        # as untyped for the abort guard, but is requeued for K1, never
+        # quarantined: the fault was the injector's
         isolated: List[Tuple[PodInfo, bool]] = []
+        injected_out: List[PodInfo] = []
         done_uids: set = set()
         successes = 0
         subsolves = 0
@@ -2826,6 +2945,12 @@ class BatchScheduler(Scheduler):
                         and isinstance(sub_err.__cause__, PoisonError)
                     )
                     isolated.append((group[0], typed))
+                    if (
+                        self.device.type == "cuda"
+                        and isinstance(sub_err, LadderExhausted)
+                        and isinstance(sub_err.__cause__, FaultInjected)
+                    ):
+                        injected_out.append(group[0])
                     flightrecorder.mark(
                         "bisect_isolated",
                         pod=group[0].pod.metadata.uid,
@@ -2860,7 +2985,7 @@ class BatchScheduler(Scheduler):
                 # group (a genuinely poisoned member re-trips
                 # containment on its next pass)
                 logger.exception("bisect sub-solve completion failed")
-                self._recover_failed_batch(pending)
+                self._recover_failed_batch(pending, e)
                 done_uids.update(
                     pi.pod.metadata.uid for pi in group
                 )
@@ -2920,7 +3045,14 @@ class BatchScheduler(Scheduler):
             isolated=len(isolated), subsolves=subsolves,
             ms=round(dt_ms, 3),
         )
+        if injected_out:
+            self._requeue_for_card(
+                injected_out, pod_scheduling_cycle,
+                "injected fault during bisection",
+            )
         for pi, typed in isolated:
+            if any(pi is q for q in injected_out):
+                continue
             self._quarantine_isolated(
                 pi, reason="poison" if typed else "bisect"
             )
@@ -3250,15 +3382,41 @@ class BatchScheduler(Scheduler):
                 breaker.record_failure()
             raise
         inj = get_injector()
+        injected = False
         if inj is not None:
+            clean = assignments
             assignments = inj.corrupt_assignments_maybe(
-                FaultPoint.SOLVE_GARBAGE, assignments
+                FaultPoint.SOLVE_GARBAGE, clean
             )
+            injected = assignments is not clean
+            if injected and tier in CARD_TIERS:
+                # the card's answer to injected garbage: the solve's own
+                # answer is intact on the device, so read it again under
+                # the RetryPolicy (the injector may corrupt the re-read
+                # too); spent attempts requeue the batch for K1
+                policy = self.ladder.config.retry
+                attempt = 1
+                while (
+                    assignments is not clean
+                    and attempt < max(1, policy.max_attempts)
+                    and _garbage(assignments[: p["b"]], p["names"])
+                ):
+                    metrics.solve_retries.inc(tier=tier)
+                    self.ladder.injected_retries += 1
+                    self.ladder.config.sleep(
+                        policy.backoff_for_attempt(attempt)
+                    )
+                    attempt += 1
+                    assignments = inj.corrupt_assignments_maybe(
+                        FaultPoint.SOLVE_GARBAGE, clean
+                    )
+                injected = assignments is not clean
         head = assignments[: p["b"]]
-        if head.size and (
-            (head < NO_NODE).any() or (head >= len(p["names"])).any()
-        ):
+        if _garbage(head, p["names"]):
             # out-of-range node indices: the solve result is garbage
+            if injected and tier in CARD_TIERS:
+                fspan.finish(routed="injected_garbage")
+                raise FaultInjected(FaultPoint.SOLVE_GARBAGE)
             if breaker is not None:
                 breaker.record_failure()
             metrics.solver_fallbacks.inc(
@@ -3277,6 +3435,7 @@ class BatchScheduler(Scheduler):
         b = p["b"]
         metrics.batch_size.observe(b)
         ds = self._dev
+        delta = None
         with self._shadow_lock:
             # the audit race-detector: a commit moving the shadow (or
             # landing a batch) invalidates any checksum window spanning
@@ -3301,6 +3460,8 @@ class BatchScheduler(Scheduler):
                     ds.req_shadow, ds.nzr_shadow,
                 )
                 if delta is not None:
+                    delta = _Delta(delta)
+                    delta.stamp = [None]
                     ds.pending_deltas.append(delta)
         # wake dispatchers parked in _await_mirrors at MIRROR time: the
         # commit/bind API transactions below can be hundreds of ms away,
@@ -3310,14 +3471,22 @@ class BatchScheduler(Scheduler):
         if inj is not None and inj.should_fire(FaultPoint.CARRY_CORRUPT):
             self._corrupt_carry_row()
         t_commit = time.perf_counter()
-        with timeline.span("commit_batch"):
-            self._commit_batch(
-                p["solver_infos"], p["order"], assignments, p["names"],
-                p["num_nodes"], p["snapshot"], p["cycle"],
-                mask_info=(p.get("mask_rows"), p.get("mask_index_solved")),
-                gang_failed_uids=p.get("gang_failed_uids"),
-                span=fspan,
-            )
+        try:
+            with timeline.span("commit_batch"):
+                self._commit_batch(
+                    p["solver_infos"], p["order"], assignments, p["names"],
+                    p["num_nodes"], p["snapshot"], p["cycle"],
+                    mask_info=(p.get("mask_rows"), p.get("mask_index_solved")),
+                    gang_failed_uids=p.get("gang_failed_uids"),
+                    span=fspan,
+                )
+        finally:
+            if delta is not None:
+                # the host cache now holds what this commit assumed; a
+                # later snapshot shows it, or a forget that undid it
+                with self._shadow_lock:
+                    self._commit_seq += 1
+                    delta.stamp[0] = self._commit_seq
         dt_commit = time.perf_counter() - t_commit
         self._stage_add("commit", dt_commit)
         fspan.stage("commit", dt_commit, t0=t_commit)
@@ -4354,7 +4523,12 @@ class BatchScheduler(Scheduler):
             while not self._stop.is_set():
                 # in-flight batches land on the committer thread, so the
                 # dispatcher can always block for the next arrivals
-                self.schedule_batch(timeout=0.5, pipeline=True)
+                try:
+                    self.schedule_batch(timeout=0.5, pipeline=True)
+                except CardFault as e:
+                    # the card's solve failed (not an injected fault):
+                    # stop, and land what is already in flight
+                    self._halt_on_card_fault(e)
             self._drain_pending()
             self._stop_committer()
         finally:

@@ -73,6 +73,7 @@ class P:
         (server, client, informer, self.types, self.faults, app, self.batch,
          self.res, sched, testing, self.metrics, self.kw) = PKGS[pkg]
         self.pkg = pkg
+        self.server = server
         self.APIServer = server.APIServer
         self.Client = client.Client
         self.InformerFactory = informer.InformerFactory
@@ -350,12 +351,18 @@ class _Inline:
         pass
 
 
-def _fenced_drive(p, seed, fenced):
+def _fenced_drive(p, seed, fenced, lag_only=False):
     """The batch scheduler of package ``p`` driven by hand over a seeded
     cluster; the fence refuses the ``fenced``-th bulk commit. Returns
     every solve's pieces, handed state and answer, each batch's outcome,
     the fenced pods' place in the queue, the placements and the final
-    carry."""
+    carry.
+
+    ``lag_only`` empties the pending-delta ring after each batch: every
+    batch here commits before the next snapshot, so none of them is host
+    lag any more. The port's handshake drops such deltas itself; the JAX
+    package reads the fenced batch's forgotten placements as lag and
+    keeps them in its carry (the phantom) unless they are dropped."""
     rng = np.random.default_rng(seed)
     server = p.APIServer()
     client = p.Client(server)
@@ -404,6 +411,8 @@ def _fenced_drive(p, seed, fenced):
                 break
             n = sched.schedule_batch(timeout=0.05, pipeline=False)
             informers.pump()
+            if lag_only:
+                sched._dev.pending_deltas.clear()
             bound = sorted((x.metadata.name, x.spec.node_name)
                            for x in client.list_pods()[0] if x.spec.node_name)
             batches.append((n, commits[0], len(bound),
@@ -434,8 +443,10 @@ def test_fenced_commit_matches_the_jax_package(seed):
     forgotten and requeued, the next dispatch finds their rows diverged
     from the carry and patches them, and everything binds once. Every
     solve, batch outcome, queue state and placement, and the final carry,
-    equal the JAX package's; the final carry equals the host pack."""
-    jax = _fenced_drive(P("jax"), seed, seed + 1)
+    equal the JAX package's with its ring holding host lag only (the JAX
+    package alone reads the fenced placements as lag, so its next solve
+    would still see them); the final carry equals the host pack."""
+    jax = _fenced_drive(P("jax"), seed, seed + 1, lag_only=True)
     port = _fenced_drive(P("torch"), seed, seed + 1)
     assert len(port[0]) == len(jax[0]) > seed + 1
     for (pp, ph, po), (jp, jh, jo) in zip(port[0], jax[0]):
@@ -452,6 +463,141 @@ def test_fenced_commit_matches_the_jax_package(seed):
     assert port[2]  # the fenced pods went back to a queue
     for a, b in zip(port[4], jax[4]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- a placement the commit forgot after the carry mirrored it --------------------
+
+
+class _Held:
+    """A bind pool that holds each commit's bind until ``run``."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def submit(self, fn, *args):
+        self.jobs.append((fn, args))
+
+    def run(self):
+        jobs, self.jobs = self.jobs, []
+        for fn, args in jobs:
+            fn(*args)
+
+    def shutdown(self, wait=True):
+        pass
+
+
+def _forgotten_drive(p, how, order, lag_only=False):
+    """Package ``p``'s batch scheduler, driven by hand over 64 equal nodes:
+    a batch of 16 pods is assumed and mirrored into the carry, then its
+    commit forgets every placement (``how``: the bulk bind unavailable on
+    every attempt, the commit fenced, or each bind a typed conflict). With
+    ``order`` "after" the forgotten pods are placed again by the next
+    dispatch; with "before" a second batch is dispatched while the first
+    one's bind is still held, and the forget lands after it. ``lag_only``
+    empties the pending-delta ring after each batch (as the port's
+    handshake drops the delta of a commit its snapshot shows). Returns the
+    pods the carry, the shadow and the host pack hold after the dispatch
+    that places the forgotten pods again, the divergences and uploads
+    counted, and every placement."""
+    server = p.APIServer()
+    client = p.Client(server)
+    informers = p.InformerFactory(server)
+    sched = p.new_scheduler(client, informers, batch=True, max_batch=16,
+                            **p.kw)
+    pool = _Inline() if order == "after" else _Held()
+    sched._bind_pool = pool
+    sched.batch_window = 0.0
+    sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
+    sched.ladder.config.sleep = lambda s: None
+    for i in range(64):
+        client.create_node(p.make_node(f"n{i:02d}").capacity(
+            cpu="8", memory="16Gi", pods=110).obj())
+    informers.pump()
+    failing = [True]
+    bind = client.bind_assumed_bulk
+
+    def refusing(assumed, *a, **kw):
+        first = failing[0] and assumed[0].metadata.name.startswith("a")
+        if first and how == "bind":
+            raise p.faults.FaultInjected(p.faults.FaultPoint.API_UNAVAILABLE)
+        if first and how == "conflict":
+            return [(i, p.server.BindConflict("already-bound"))
+                    for i in range(len(assumed))]
+        return bind(assumed, *a, **kw)
+
+    client.bind_assumed_bulk = refusing
+    if how == "fence":
+        sched.fencing_check = lambda: not failing[0]
+
+    def wave(prefix):
+        client.create_pods_bulk([p.make_pod(f"{prefix}{i:02d}").container(
+            cpu="500m", memory="512Mi").obj() for i in range(16)])
+        informers.pump()
+
+    def step():
+        n = sched.schedule_batch(timeout=0.05, pipeline=False)
+        informers.pump()
+        if lag_only:
+            sched._dev.pending_deltas.clear()
+        return n
+
+    wave("a")
+    assert step() == 16
+    if order == "before":
+        wave("b")
+        assert step() == 16
+        if how == "fence":
+            sched.fencing_check = lambda: not failing[0] or bool(pool.jobs)
+        pool.run()  # a's commit forgets its pods now, b's binds
+        if how == "fence":
+            sched.fencing_check = lambda: True
+    failing[0] = False
+    informers.pump()
+    sched.queue.move_all_to_active_or_backoff_queue("retry")
+    sched.queue.flush_backoff_q_completed()
+    assert step() == 16, "the forgotten pods were not placed again"
+    if order == "before":
+        pool.run()
+        informers.pump()
+    sched.cache.update_snapshot(sched.algorithm.snapshot)
+    nt = sched.tensor_cache.update(sched.algorithm.snapshot)
+    held = (int(np.asarray(sched._dev.req_dev)[:, 3].sum()),
+            int(np.asarray(sched._dev.req_shadow)[:, 3].sum()),
+            int(nt.requested[:, 3].sum()))
+    placements = sorted((x.metadata.name, x.spec.node_name)
+                        for x in client.list_pods()[0])
+    assert all(node for _, node in placements), "a pod left unbound"
+    assert set(_bind_transitions(server).values()) == {1}
+    return held, sched.carry_divergences, sched.state_uploads, placements
+
+
+@pytest.mark.parametrize("how,order", [
+    ("bind", "after"), ("fence", "after"), ("conflict", "after"),
+    ("bind", "before"),
+])
+def test_a_forgotten_placement_leaves_no_phantom_in_the_carry(how, order):
+    """A commit forgets placements the carry already mirrored. The port's
+    carry and shadow equal the host pack after the dispatch that places
+    the pods again, with one divergence counted and the rows patched (no
+    upload), and it places them where the JAX package does with its ring
+    holding host lag only. The JAX package as it stands reads the forget
+    as lag when it lands before the next dispatch ("after"): its carry
+    keeps the 16 forgotten pods, uncounted, and the pods are placed past
+    the rows they hold. When a later batch was dispatched first
+    ("before"), both packages count the divergence and place alike."""
+    port = _forgotten_drive(P("torch"), how, order)
+    ref = _forgotten_drive(P("jax"), how, order, lag_only=True)
+    jax = _forgotten_drive(P("jax"), how, order)
+    pods = 16 if order == "after" else 32
+    assert port[0] == (pods, pods, pods)
+    assert port[1:3] == (1, 1)
+    assert port == ref
+    if order == "after":
+        assert jax[0] == (pods + 16, pods + 16, pods)
+        assert jax[1:3] == (0, 1)
+        assert jax[3] != port[3]
+    else:
+        assert jax == port
 
 
 # -- the repairs, against the JAX package ------------------------------------------

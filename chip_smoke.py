@@ -8686,6 +8686,7 @@ def chaos_burst(profile, gk, device=None):
             relists=counter_total(metrics.watch_relists),
             bind_retries=metrics.bind_retries.value(),
             uploads=sched.state_uploads,
+            drops=sched.carry_drop_redispatches,
         )
         tiers0 = dict(sched.ladder.solves_by_tier)
         gk.launches = 0  # the counts of THIS run of the path
@@ -8761,6 +8762,8 @@ def chaos_burst(profile, gk, device=None):
         relists=counter_total(metrics.watch_relists) - base["relists"],
         bind_retries=metrics.bind_retries.value() - base["bind_retries"],
         state_uploads=sched.state_uploads - base["uploads"],
+        carry_drop_redispatches=(sched.carry_drop_redispatches
+                                 - base["drops"]),
         solves_by_tier=tiers, greedy_kernel_launches=launches,
         solves=len(calls), dispatches=len(dispatched), audit=audit,
         replay_equal=True, replay_seconds=replay_s, setup_seconds=setup_s,

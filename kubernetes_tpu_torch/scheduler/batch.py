@@ -788,6 +788,10 @@ class BatchScheduler(Scheduler):
         self.max_inflight = MAX_INFLIGHT
         self.speculative_launches = 0
         self.speculative_rewinds = 0
+        # dispatches redone because the resident state they negotiated
+        # was dropped before they read it (the committer's recovery of a
+        # failed batch invalidates the carry on its own thread)
+        self.carry_drop_redispatches = 0
         # range-gated int16 carry compression: engaged per dispatch
         # while every resident column sum provably stays inside the int16
         # guard band, so the narrowed carry is bit-exact.
@@ -1881,14 +1885,16 @@ class BatchScheduler(Scheduler):
         maxima post-negotiate, or the upload source on a cold path)
         plus this batch's and every unmirrored in-flight batch's
         worst-case column load must stay inside the int16 guard band.
-        Converts the resident carry on a mode flip (one tiny on-device
-        kernel each way, both warmed) and books the disengage reasons.
-        Constrained/overlaid dispatches always run uncompressed -- the
-        constrained ladder keeps its one-int32-signature contract."""
+        Books the disengage reasons; the dispatch converts the resident
+        carry on a mode flip when it reads it (one tiny on-device kernel
+        each way, both warmed). Constrained/overlaid dispatches always
+        run uncompressed -- the constrained ladder keeps its
+        one-int32-signature contract."""
         ds = self._dev
+        carry = ds.req_dev  # read once: the committer may drop it
         resident16 = (
-            ds.req_dev is not None
-            and getattr(ds.req_dev, "dtype", None) == torch.int16
+            carry is not None
+            and getattr(carry, "dtype", None) == torch.int16
         )
         want = not constrained and not overlaid
         if want:
@@ -1909,15 +1915,6 @@ class BatchScheduler(Scheduler):
                 metrics.carry_compress_disengages.inc(reason="range")
         elif resident16:
             metrics.carry_compress_disengages.inc(reason="mode")
-        if neg["carry_ok"] and ds.req_dev is not None:
-            if want and not resident16:
-                ds.req_dev, ds.nzr_dev = compress_carry(
-                    ds.req_dev, ds.nzr_dev
-                )
-            elif not want and resident16:
-                ds.req_dev, ds.nzr_dev = decompress_carry(
-                    ds.req_dev, ds.nzr_dev
-                )
         metrics.carry_compressed.set(1.0 if want else 0.0)
         return want
 
@@ -2412,6 +2409,42 @@ class BatchScheduler(Scheduler):
             )
             if compress:
                 span.note(compressed=True)
+        # the resident state this solve consumes, read once under the
+        # lock (an injected corruption landing mid-dispatch is carried
+        # into its output). The committer's recovery of a failed batch
+        # drops the carry on its own thread, so what the handshake
+        # negotiated may be gone by now: then the negotiation is undone
+        # and the dispatch redone from the host state, as a drain is
+        with self._shadow_lock:
+            alloc_in, valid_in = (
+                (ds.alloc_dev, ds.valid_dev) if static_ok else (None, None)
+            )
+            req_in, nzr_in = (
+                (ds.req_dev, ds.nzr_dev) if carry_ok else (None, None)
+            )
+            dropped = (static_ok and alloc_in is None) or (
+                carry_ok and (req_in is None or ds.req_shadow is None)
+            )
+            if dropped:
+                self._unbook_dispatch(neg)
+            elif carry_ok and (req_in.dtype == torch.int16) != compress:
+                # the int16 mode flipped: convert the resident carry
+                req_in, nzr_in = (
+                    compress_carry if compress else decompress_carry
+                )(req_in, nzr_in)
+                ds.req_dev, ds.nzr_dev = req_in, nzr_in
+        if dropped:
+            self.carry_drop_redispatches += 1
+            flightrecorder.mark("carry_dropped_mid_dispatch")
+            if self._pending_exists():
+                self.speculative_rewinds += 1
+                metrics.speculative_rewinds.inc(reason="drain")
+            self._drain_pending()
+            span.finish(routed="carry_drop_redispatch")
+            return self._dispatch_solve(
+                solver_infos, pod_scheduling_cycle,
+                inactive_uids=inactive_uids,
+            )
         # single-buffer upload: the whole batch rides ONE int32 buffer and
         # ONE host->device copy, re-sliced (and bitcast for float
         # tensors) on the device (ops/assignment.py solve_packed)
@@ -2481,10 +2514,6 @@ class BatchScheduler(Scheduler):
                 noop_score_tensors(padded, nt.capacity),
             )
         solve_mode = "constrained" if constrained else self.solver_mode
-        # the resident carry this solve consumes (read once: an injected
-        # corruption landing mid-dispatch is carried into its output)
-        req_in = ds.req_dev if carry_ok else None
-        nzr_in = ds.nzr_dev if carry_ok else None
 
         # the hang the injector handed each device attempt, newest last:
         # the ladder reads it to tell an injected hang from the card's
@@ -2513,8 +2542,8 @@ class BatchScheduler(Scheduler):
                 inj.raise_maybe(FaultPoint.DEVICE_SOLVE)
             return solve_packed(
                 pieces,
-                ds.alloc_dev if static_ok else None,
-                ds.valid_dev if static_ok else None,
+                alloc_in,
+                valid_in,
                 req_in,
                 nzr_in,
                 config=self.solver_config,
@@ -2591,29 +2620,7 @@ class BatchScheduler(Scheduler):
             if injected:
                 self.injected_exhaustions += 1
             with self._shadow_lock:
-                ds.invalidate_carry()
-                # no device solve LANDED, so the booked upload / scatter
-                # never became device state: un-book the counters (a
-                # drain-and-redispatch would book the batch again). A
-                # device tier that uploaded and then failed still paid
-                # the link traffic; that cost is attributed by
-                # solves_by_tier/breaker metrics, not here --
-                # state_uploads counts established state.
-                if carry_ok:
-                    self.state_reuses -= 1
-                    self.delta_rows_uploaded -= int(
-                        neg["didx"].size + neg["sidx"].size
-                    )
-                    self.membership_row_patches -= neg["member"]
-                else:
-                    self.state_uploads -= 1
-                if neg["sidx"].size or not static_ok:
-                    # the alloc row patch / full static upload never
-                    # reached the device (no solve ran) but the shadow
-                    # already claims it: drop the resident alloc so the
-                    # next dispatch re-uploads instead of trusting it
-                    ds.alloc_dev = None
-                    ds.valid_dev = None
+                self._unbook_dispatch(neg)
             if raise_on_exhaust:
                 # bisection sub-solve: the caller owns this group's
                 # disposition (split further or isolate)
@@ -2753,6 +2760,32 @@ class BatchScheduler(Scheduler):
             "mask_index_solved": midx,
             "load16": batch_load16,
         }
+
+    def _unbook_dispatch(self, neg) -> None:
+        """No device solve LANDED for the negotiation ``neg``, so the
+        booked upload / scatter never became device state: drop the carry
+        and un-book the counters (a drain-and-redispatch would book the
+        batch again). A device tier that uploaded and then failed still
+        paid the link traffic; that cost is attributed by
+        solves_by_tier/breaker metrics, not here -- state_uploads counts
+        established state. The caller holds ``_shadow_lock``."""
+        ds = self._dev
+        ds.invalidate_carry()
+        if neg["carry_ok"]:
+            self.state_reuses -= 1
+            self.delta_rows_uploaded -= int(
+                neg["didx"].size + neg["sidx"].size
+            )
+            self.membership_row_patches -= neg["member"]
+        else:
+            self.state_uploads -= 1
+        if neg["sidx"].size or not neg["static_ok"]:
+            # the alloc row patch / full static upload never reached the
+            # device (no solve ran) but the shadow already claims it:
+            # drop the resident alloc so the next dispatch re-uploads
+            # instead of trusting it
+            ds.alloc_dev = None
+            ds.valid_dev = None
 
     # -- blast-radius containment (robustness/containment.py) ----------------
 
@@ -3024,8 +3057,10 @@ class BatchScheduler(Scheduler):
             )
             logger.warning(
                 "bisection aborted after %d failed sub-solves with no "
-                "success (systemic failure); %d pods take the "
-                "sequential path", subsolves, len(remaining),
+                "success (systemic failure); %d pods %s", subsolves,
+                len(remaining),
+                "requeued for K1" if self.device.type == "cuda"
+                else "take the sequential path",
             )
             for pi in typed_pis:
                 self._quarantine_isolated(pi, reason="poison")

@@ -16,7 +16,11 @@ takes the card's branch, and no tensor leaves the CPU. The answers
   pod is quarantined for it, nothing halts, and every pod binds once it
   is lifted;
 - a solve that raises (a kernel that cannot launch): the scheduler halts
-  with a ``CardFault`` caused by it.
+  with a ``CardFault`` caused by it;
+- resident state dropped on another thread between the handshake and the
+  solve (the committer's recovery of a failed batch drops the carry): the
+  dispatch is redone from the host state and places as it would have,
+  where it used to hand K1 a missing carry and halt.
 """
 
 import time
@@ -241,3 +245,49 @@ def test_a_solve_that_raises_halts_with_a_card_fault(card, monkeypatch):
     assert sched._stop.is_set()
     assert _bound(client) == 0
     assert sched.injected_retries == 0
+
+
+def _placements(client):
+    return {p.metadata.name: p.spec.node_name for p in client.list_pods()[0]}
+
+
+@pytest.mark.parametrize("dropped", ["carry", "alloc"])
+def test_state_dropped_mid_dispatch_is_redispatched(card, dropped):
+    """The second batch's handshake negotiates the resident carry; before
+    the dispatch reads it, the carry (as the committer's recovery drops
+    it) or the resident allocatable (as a carry audit's heal drops it) is
+    gone. The dispatch undoes its booking, uploads the host state and
+    places every pod exactly as an undisturbed scheduler does, on K1's
+    tier alone, with no halt."""
+    runs = {}
+    for disturb in (False, True):
+        sched, client, informers = card()
+        _wave(client, informers, "a", 12)
+        assert _step(sched, informers) == 12
+        orig = sched._negotiate_device_state
+        calls = []
+
+        def negotiate(*a, **kw):
+            neg = orig(*a, **kw)
+            calls.append(neg)
+            if disturb and len(calls) == 1:
+                with sched._shadow_lock:
+                    if dropped == "carry":
+                        sched._dev.invalidate_carry()
+                    else:
+                        sched._dev.alloc_dev = sched._dev.valid_dev = None
+            return neg
+
+        sched._negotiate_device_state = negotiate
+        _wave(client, informers, "b", 12)
+        assert _step(sched, informers) == 12
+        assert sched.card_fault is None
+        assert _bound(client) == 24
+        assert calls[0]["carry_ok"] and calls[0]["static_ok"]
+        tiers = {k: v for k, v in sched.ladder.solves_by_tier.items() if v}
+        assert tiers == {"cuda": 2}
+        assert sched.carry_drop_redispatches == int(disturb)
+        assert (sched.state_uploads, sched.state_reuses) == (
+            (2, 0) if disturb else (1, 1))
+        runs[disturb] = _placements(client)
+    assert runs[True] == runs[False]

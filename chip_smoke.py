@@ -140,7 +140,14 @@ line is printed only when every phase passed):
    its recorded pack and pods through the plain version. Prints the pods
    drained twice into one batch, pods/s,
    p50/p99 create-to-bind, the waves and their sizes and seconds, K3's
-   launches, the victims, the pack seconds and the stage seconds.
+   launches, the victims, the pack seconds and the stage seconds. The
+   warm wave (the first that nominates) is kept with a frozen copy of
+   its snapshot and the queue's nominations, and its pods replayed in
+   order through the host oracle (``Preemptor._host_wave_answers`` on a
+   scratch queue and a framework of the default plugins over the copy,
+   the clock read once as K3's pack reads it) for as many pods as fit
+   in 30 s: each pod's node, victims and PDB violations must equal K3's
+   (``oracle_replay`` line: pods replayed, seconds per pod).
 8. ``mesh_burst``: the ``burst`` phase again on the node-sharded tier,
    ``new_scheduler(batch=True, max_batch=4096,
    mesh=NodeMesh(["cuda:0"] * 4))``: four shards of 1,408 rows on the
@@ -303,8 +310,8 @@ line is printed only when every phase passed):
    isolations, holds, parks, parked, heals), K1 launches and the
    bisections' sub-solves and milliseconds.
 15. ``pipeline``: the speculative pipeline on the card. (a)
-   SchedulingBasic's cluster and pods at max_batch 1,024 (about ten
-   batches chained speculatively) under a profile whose BIND_CONFLICT
+   SchedulingBasic's cluster and 5,000 of its pods at max_batch 1,024
+   (about five batches chained speculatively) under a profile whose BIND_CONFLICT
    point fires once: asserts every pod binds exactly once over the whole
    watch history, the conflict fired, the speculative rewinds stay
    within the in-flight window plus two, every batch solved on "cuda"
@@ -367,7 +374,7 @@ line is printed only when every phase passed):
    recorded), GPUBinPackNUMA/500 (:526-538: GPU groups 4_4, 1,000 pods
    of two GPUs aligned to one group: every pod takes the sequential
    path by admission, ``pods_fallback`` moving by exactly that count)
-   and, beside them, a mixed correctness case (the NUMA cluster, 1,000
+   and, beside them, a mixed correctness case (the NUMA cluster, 250
    pods alternating aligned 2-GPU and unaligned 1-GPU, max_batch 64, so
    K1 solves and host binds interleave). The ``gang`` checks, plus no
    node over its 8 GPUs and no NUMA group holding more aligned GPUs
@@ -434,7 +441,37 @@ line is printed only when every phase passed):
    in-place retries or requeued waves (at least one of each), every
    DEVICE_SOLVE fire (at least one) retried in place or exhausted on
    K1's tier, slow-dying victims, the one bind conflict absorbed by the
-   bulk bind's retry.
+   bulk bind's retry. The first row's first K3 wave that nominates (the
+   PDB of 400 live) is replayed through the host oracle for 10 s as
+   ``preemption_burst``'s warm wave is.
+20b. ``parity``: the card's batch path against the sequential
+   Filter/Score path, and the host preemption oracle on a ``cuda``
+   scheduler. (i) ScoreParity/6: tests/test_score_parity.py's 6-node
+   cluster and 22 pods (every score family) through the batch scheduler
+   on the card (max_batch 64, synchronous binds) and through the
+   sequential scheduler (every node scored, ties kept first) on the
+   CPU: identical placements, no pod on the sequential route, the
+   avoided pod off n2.
+   (ii) ScoreParity/500: the same nine families at full width on
+   SchedulingBasic/500's nodes (500 of 32 CPU / 64Gi / 110 pods, zone
+   i mod 10; image, taint and preferAvoidPods on seeded nodes; a seeded
+   existing load whose db pods sit in zones z0-z4), 500 pods from seed
+   17 in the reference's proportions, max_batch 64: identical
+   placements, every differing pod printed with the sequential scores
+   of both nodes; its sequential run runs on the CPU in a subprocess
+   that sees no card, from the phase's start, beside the card's work
+   (ScoreParity/6, then (iii), then its batch run). Both paths score
+   every node and keep the first tie,
+   and a failed pod's backoff is an hour, so no run depends on the
+   host's speed. (iii) HostOraclePreemption/500: SchedulingBasic/500's
+   nodes filled with ten bound priority-0 pods of 3 CPU / 6Gi each
+   (those of 400 nodes under a PDB that allows 16 evictions), one bound
+   pod with required anti-affinity so no preemptor is device-eligible,
+   then 32 preemptors at priority 100 through the batch scheduler on the
+   card with a DisruptionController: every preemptor bound,
+   ``host_preemptions`` moving by at least 32, K3 launching nothing,
+   every victim at priority 0, no PDB below 0 and at most 16 guarded
+   victims, no card fault.
 21. ``extender``: ExtenderBurst/500 (SchedulingBasic/500's cluster and
    pods, every node with 4 example.com/widget, every tenth measured pod
    requesting one; an in-process HTTP extender on 127.0.0.1 managing
@@ -480,8 +517,9 @@ line is printed only when every phase passed):
    adds its launches in ``lifecycle``, ``partitions``, ``tenancy``,
    ``containment``, ``pipeline``, ``constrained_families``,
    SchedulingBasic/500, ``gang``, ``gpu``, ``succession``, ``storm``,
-   ``extender`` and ``ladder``, K2 in ``constrained_families`` and
-   ``ladder``, K3 in ``lifecycle``, ``tenancy``, ``storm`` and ``ladder``,
+   ``parity``, ``extender`` and ``ladder``, K2 in ``constrained_families``,
+   ``parity`` and ``ladder``, K3 in ``lifecycle``, ``tenancy``, ``storm``,
+   ``parity`` and ``ladder``,
    K4 and K1's scored entry in ``ladder``).
 
 Then the card's name and power limit as nvidia-smi prints them, and the
@@ -2190,6 +2228,7 @@ PREEMPT_NODES = 5000
 PREEMPT_FILL = 50000      # init_pods: 3 CPU / 6Gi at priority 0
 PREEMPT_WARM = 32         # init_preempt
 PREEMPT_MEASURED = 1000   # measure_pods: 3 CPU / 6Gi at priority 100
+PREEMPT_ORACLE_S = 30     # seconds of the host oracle's warm-wave replay
 
 
 def preemption_burst(pk, gk):
@@ -2244,9 +2283,11 @@ def preemption_burst(pk, gk):
     fill_s = time.perf_counter() - t_setup
 
     # record every K3 call (its operands and answer), every nomination's
-    # victims, the pack builds and the waves
+    # victims, the pack builds and the waves; the warm wave is kept for
+    # the host oracle's replay
     calls, applied, packs, waves = [], [], [], []
     preemptor = sched.preemptor
+    oracle = OracleReplay(preemptor, nominates)
     orig_solve = pk.preempt_solve
     orig_pack = pre_mod.pack_preemption_state
     orig_apply = preemptor._apply_preemption
@@ -2287,6 +2328,7 @@ def preemption_burst(pk, gk):
         watch.stop()
         sched.wait_for_inflight_binds(timeout=60)
         warm_waves = len(waves)
+        oracle.armed = False  # the measured waves are not recorded
         setup_s = time.perf_counter() - t_setup
 
         tiers0 = dict(preemptor.ladder.solves_by_tier)
@@ -2323,6 +2365,7 @@ def preemption_burst(pk, gk):
         pre_mod.pack_preemption_state = orig_pack
         preemptor._apply_preemption = orig_apply
         preemptor.preempt_batch = orig_wave
+        oracle.close()
     stages = {
         k: v - stages0.get(k, 0.0) for k, v in sched.stage_seconds.items()
     }
@@ -2392,6 +2435,8 @@ def preemption_burst(pk, gk):
         if not all(torch.equal(o.cpu(), w) for o, w in zip(out, want)):
             raise AssertionError("a wave's K3 answer differs from its replay")
     replay_s = time.perf_counter() - t_replay
+    oracle_rec = oracle.replay("Preemption/5000: the warm wave",
+                               PREEMPT_ORACLE_S)
     lat = sorted(watch.bind_times[nm] - create_times[nm] for nm in names)
     measured_waves = waves[warm_waves:]
     rec = dict(
@@ -2411,7 +2456,7 @@ def preemption_burst(pk, gk):
         drained_twice=drains.twice, pack_seconds=packs,
         solves_by_tier=tiers, counters_moved=moved,
         stage_seconds=stages, replay_equal=True, replay_seconds=replay_s,
-        fill_seconds=fill_s, setup_seconds=setup_s,
+        fill_seconds=fill_s, setup_seconds=setup_s, oracle_replay=oracle_rec,
     )
     emit("preemption_burst", **rec)
     return rec
@@ -2756,7 +2801,7 @@ def host_replay(dispatched, state0, config):
         return want
     alloc0, valid0, req_s, nzr_s = state0
     req_s, nzr_s = req_s.astype(np.int32), nzr_s.astype(np.int32)
-    for p in dispatched:
+    for i, p in enumerate(dispatched):
         b = p["b"]
         active = np.zeros(p["req"].shape[0], bool)
         active[:b] = True
@@ -2766,7 +2811,10 @@ def host_replay(dispatched, state0, config):
         )
         dev_asg = _to_host(p["assignments_dev"])[:b]
         if not np.array_equal(dev_asg, asg[:b]):
-            raise AssertionError("device assignments differ from the replay")
+            raise AssertionError(
+                f"device assignments differ from the replay at solve {i} "
+                f"of {len(dispatched)}: {int((dev_asg != asg[:b]).sum())} "
+                f"of {b} pods")
         for k in range(b):
             if asg[k] >= 0:
                 pod = p["solver_infos"][int(p["order"][k])].pod
@@ -3964,6 +4012,9 @@ def lifecycle_row(row, gk, pk, device=None):
         )
 
     injected0 = injected_now() if profile_injector is not None else None
+    # the first K3 wave that nominates, kept for the host oracle's replay
+    oracle = (OracleReplay(preemptor, nominates)
+              if row.get("oracle_replay_s") else None)
     gk.launches = 0  # the counts of THIS row's run of the path
     pk.launches = 0
     sched_thread = None
@@ -4224,6 +4275,8 @@ def lifecycle_row(row, gk, pk, device=None):
         batch_mod.solve_packed = orig_solve
         pk.preempt_solve = orig_k3
         preemptor.plan_replacements = orig_plan
+        if oracle is not None:
+            oracle.close()
         if scenario_thread is not None:
             scenario_thread.join(timeout=30)
         for comp in reversed(stoppers):
@@ -4338,6 +4391,9 @@ def lifecycle_row(row, gk, pk, device=None):
         else:
             k3_wave += 1
     replay_s = time.perf_counter() - t_replay
+    oracle_rec = (oracle.replay(f"{name}: first nominating wave",
+                                row["oracle_replay_s"])
+                  if oracle is not None else None)
 
     if drainer is not None:
         counters.update(
@@ -4431,6 +4487,8 @@ def lifecycle_row(row, gk, pk, device=None):
         lifecycle=counters, replay_equal=True, replay_seconds=replay_s,
         fill_seconds=fill_s, setup_seconds=setup_s,
     )
+    if oracle_rec is not None:
+        rec["oracle_replay"] = oracle_rec
     if injected is not None:
         rec["injected"] = injected
     if controller is not None:
@@ -4491,12 +4549,15 @@ PRIORITY_INVERSION_STORM = dict(
     preemption=dict(pdb=dict(match_labels={"app": "fill"},
                              max_unavailable=400),
                     respawn_prefix="init-", high_priority_threshold=100),
+    # seconds of the host oracle's replay of the first nominating K3 wave
+    oracle_replay_s=10,
 )
 STORM_ROWS = [
     PRIORITY_INVERSION_STORM,
     dict(PRIORITY_INVERSION_STORM,
          name="PriorityInversionStorm/500+preemption-chaos",
          fault_profile="preemption-chaos", fault_seed=42,
+         oracle_replay_s=None,
          # the least each count must reach: at least one wave requeued,
          # in-place retries on K3's tier and on K1's, slow-dying victims;
          # every PREEMPT_SOLVE fire the profile allows spent, and its one
@@ -5827,6 +5888,9 @@ def containment(gk, device=None, rows=POISON_ROWS):
 # -- phase 15: the speculative pipeline ---------------------------------------
 
 PIPELINE_MAX_BATCH = 1024
+# the bind-conflict cases' pods: half of SchedulingBasic's burst, so about
+# five batches chain (a depth cut: the whole burst took ~14 s a case)
+PIPELINE_PODS = N_PODS // 2
 PIPELINE_WAIT_S = 300
 # the reference guard's pressure knob (tests/test_speculative_pipeline.py
 # holds each commit on the committer thread): held longer than a batch's
@@ -5844,9 +5908,9 @@ INT16_CASE = dict(nodes=40, cpu="4", memory="24Mi", node_pods=200, pods=300,
 
 def pipeline_conflict(gk, device=None, n_nodes=N_NODES, n_pods=N_PODS,
                       hold=0.0):
-    """SchedulingBasic's cluster and pods at max_batch 1,024 (about ten
-    batches) under a profile whose BIND_CONFLICT point fires once (rate
-    1.0, one fire): every pod binds exactly once, the rewinds stay within
+    """SchedulingBasic's cluster and pods at max_batch 1,024 (about five
+    batches at ``PIPELINE_PODS``) under a profile whose BIND_CONFLICT
+    point fires once (rate 1.0, one fire): every pod binds exactly once, the rewinds stay within
     the in-flight window plus two, every batch solves on the card through
     K1, and each recorded solve equals its CPU replay (with no rewind and
     no divergence, also the numpy host greedy chained over every solve
@@ -6790,7 +6854,7 @@ GPU_ROWS = [
     # with aligned and unaligned pods alternating in small batches, so K1
     # solves and the sequential path's host binds interleave
     dict(name="GPUMixedNUMA/500", phase="gpu", source=":526-538, mixed",
-         nodes=500, node=NUMA_NODE, measured=1000, max_batch=64,
+         nodes=500, node=NUMA_NODE, measured=250, max_batch=64,
          pods=[NUMA_POD,
                dict(cpu="100m", memory="128Mi", scalars={GPU_RESOURCE: 1})],
          solver=BIN_PACK),
@@ -7151,18 +7215,39 @@ def matrix_row(row, gk, device=None, hooks=None):
     t_replay = time.perf_counter()
     want = replay_solves(calls, dispatched)
     if row.get("chain") and calls:
-        # the numpy host greedy chained over every solve from the state
-        # the first one was handed
-        pieces = dict(calls[0]["pieces"])
-        state0 = tuple(
-            np.asarray(pieces[k]) if k in pieces else batch_mod._to_host(t)
-            for k, t in zip(("alloc", "valid", "req_state", "nzr_state"),
-                            calls[0]["state"])
-        )
-        chained = host_replay(dispatched, state0, sched.solver_config)
-        if any(chained.get(nm) != placed.get(nm) for nm in names):
-            raise AssertionError(f"{name}: placements differ from the host "
-                                 "greedy chained over the solves")
+        # the numpy host greedy chained over the solves that stood, from
+        # the state the first one was handed. A gang re-solve's first
+        # attempt was rewound off the carry: only the re-solve is
+        # chained. A solve handed an uploaded state (the carry dropped
+        # before it: a quorum failure left after the re-solve drops it)
+        # starts the chain again from that state, and a member masked at
+        # the commit is not placed.
+        rewound = {id(first) for first, _ in resolves}
+        call_of = {id(c["out"][0]): c for c in calls}
+        chained, segment, state = {}, [], None
+        for p in dispatched:
+            if id(p) in rewound:
+                continue
+            call = call_of[id(p["assignments_dev"])]
+            if state is None or any(t is None for t in call["state"]):
+                chained.update(host_replay(segment, state,
+                                           sched.solver_config))
+                segment, state = [], tuple(handed(call))
+            segment.append(p)
+        chained.update(host_replay(segment, state, sched.solver_config))
+        masked = set().union(*(p.get("gang_failed_uids") or ()
+                               for p in dispatched))
+        for p in dispatched:
+            for pi in p["solver_infos"]:
+                if pi.pod.metadata.uid in masked:
+                    chained.pop(pi.pod.metadata.name, None)
+        apart = [(nm, chained.get(nm, ""), placed.get(nm) or "")
+                 for nm in names
+                 if chained.get(nm, "") != (placed.get(nm) or "")]
+        if apart:
+            raise AssertionError(
+                f"{name}: {len(apart)} placements differ from the host "
+                f"greedy chained over the solves, e.g. {apart[:3]}")
     replay_s = time.perf_counter() - t_replay
     # a device placement stands unless a quorum mask took it back
     mismatched = [nm for nm in want if nm in create_times and want[nm]
@@ -9269,6 +9354,695 @@ def ladder_phase(gk, device=None):
         preempt_kernel_launches=yaml["K3"], shard_kernel_launches=yaml["K4"])
 
 
+# -- phase 20b: the batch path against the sequential path; K3 against the
+#    host oracle -------------------------------------------------------------
+
+
+class KeepFirstRng:
+    """Reservoir sampling that never replaces: the sequential select_host
+    keeps the first max, as the device's argmax keeps the lowest index."""
+
+    def randrange(self, n):
+        return 1 if n > 1 else 0
+
+
+AVOID_PODS = json.dumps({"preferAvoidPods": [{"podSignature": {
+    "podController": {"kind": "ReplicaSet", "uid": "rs-avoided"}}}]})
+# tests/test_score_parity.py's nine pod families, in its proportions
+PARITY_FAMILIES = (("plain",) * 4 + ("img",) * 2 + ("naff",) * 2
+                   + ("web",) * 4 + ("soft",) * 3 + ("hard",) * 3
+                   + ("anti",) * 3 + ("avoided",))
+SCORE_PARITY_6 = dict(name="ScoreParity/6", source="tests/test_score_parity.py"
+                      ":50-155", nodes=6, zones=3, pods=22, max_batch=64)
+SCORE_PARITY_500 = dict(
+    name="ScoreParity/500", source="tests/test_score_parity.py:50-155 at "
+    "performance-config.yaml:9-23's nodes (500 of 32 CPU / 64Gi / 110 pods, "
+    "10 zones)", nodes=500, zones=10, pods=500, max_batch=64, seed=17)
+PARITY_WAIT_S = 10.0
+
+
+def parity_node(make_node, i, zones, capacity):
+    z = f"z{i % zones}"
+    return (make_node(f"n{i}")
+            .labels(zone=z, **{"failure-domain.beta.kubernetes.io/zone": z})
+            .capacity(**capacity))
+
+
+def parity_service(client):
+    from kubernetes_tpu_torch.api.types import Service
+
+    svc = Service()
+    svc.metadata.name = "websvc"
+    svc.metadata.namespace = "default"
+    svc.selector = {"app": "web"}
+    client.create(svc)
+
+
+def score_parity_6_cluster(client):
+    """tests/test_score_parity.py's ``_build_cluster``, as written."""
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    for i in range(6):
+        n = parity_node(make_node, i, 3,
+                        dict(cpu="16", memory="32Gi", pods=40))
+        if i in (0, 3):
+            n = n.image("registry/app:v1", 500 * 1024 * 1024)
+        if i == 1:
+            n = n.taint("flaky", "true", effect="PreferNoSchedule")
+        n = n.obj()
+        if i == 2:
+            n.metadata.annotations[
+                "scheduler.alpha.kubernetes.io/preferAvoidPods"] = AVOID_PODS
+        client.create_node(n)
+    parity_service(client)
+    for i, (node, cpu) in enumerate(
+        [("n0", "2"), ("n1", "4"), ("n2", "1"), ("n4", "6")]
+    ):
+        client.create_pod(
+            make_pod(f"existing-{i}").node(node)
+            .labels(app="web" if i % 2 == 0 else "db")
+            .container(cpu=cpu, memory=f"{1 + i}Gi").obj())
+
+
+def parity_pod(family, name):
+    """One pending pod of a tests/test_score_parity.py family."""
+    from kubernetes_tpu_torch.testing import make_pod
+
+    small = dict(cpu="250m", memory="512Mi")
+    w = make_pod(name)
+    if family == "plain":
+        return w.container(cpu="500m", memory="1Gi")
+    if family == "img":
+        return w.container(image="registry/app:v1", **small)
+    if family == "naff":
+        return w.container(**small).preferred_node_affinity_in(
+            "zone", ["z1"], weight=10)
+    if family == "web":
+        return w.labels(app="web").container(**small)
+    if family == "soft":
+        return w.labels(app="soft").container(**small).spread_constraint(
+            1, "zone", when_unsatisfiable="ScheduleAnyway",
+            match_labels={"app": "soft"})
+    if family == "hard":
+        return w.labels(app="hard").container(**small).spread_constraint(
+            1, "zone", match_labels={"app": "hard"})
+    if family == "anti":
+        return w.labels(app="db").container(**small).pod_affinity(
+            "zone", {"app": "db"}, anti=True)
+    return w.container(**small)  # avoided: the owner is added below
+
+
+def parity_pods(families, indexed):
+    """The pending pods, one per family in order, with increasing
+    creation timestamps, named ``<family>-<index in the list>`` or, not
+    ``indexed``, as tests/test_score_parity.py names them (by the count
+    within the family); an avoided pod is owned by the annotated
+    ReplicaSet."""
+    from kubernetes_tpu_torch.api.types import OwnerReference
+
+    pods = []
+    for t, fam in enumerate(families):
+        if indexed:
+            name = f"{fam}-{t}"
+        else:
+            k = families[:t].count(fam)
+            name = "avoided" if fam == "avoided" else f"{fam}-{k}"
+        pod = parity_pod(fam, name).creation_timestamp(float(t)).obj()
+        if fam == "avoided":
+            pod.metadata.owner_references.append(OwnerReference(
+                kind="ReplicaSet", name="rs", uid="rs-avoided",
+                controller=True))
+        pods.append(pod)
+    return pods
+
+
+def score_parity_500_cluster(client, seed):
+    """ScoreParity/500's cluster: SchedulingBasic/500's nodes created
+    zone-interleaved as ``_build_cluster`` does, with the image, the
+    PreferNoSchedule taint and the preferAvoidPods annotation on seeded
+    nodes (a tenth, a twentieth, a twentieth), the Service, and a tenth
+    of a pod per node of existing load (1-6 CPU, 1-4Gi), web and db
+    alternating, the db pods only in zones z0-z4 so that the anti-affinity
+    family finds room in the other five."""
+    import random
+
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    rng = random.Random(seed)
+    row = SCORE_PARITY_500
+    n_nodes, zones = row["nodes"], row["zones"]
+    for i in range(n_nodes):
+        n = parity_node(make_node, i, zones,
+                        dict(cpu="32", memory="64Gi", pods=110))
+        if rng.random() < 0.1:
+            n = n.image("registry/app:v1", 500 * 1024 * 1024)
+        if rng.random() < 0.05:
+            n = n.taint("flaky", "true", effect="PreferNoSchedule")
+        n = n.obj()
+        if rng.random() < 0.05:
+            n.metadata.annotations[
+                "scheduler.alpha.kubernetes.io/preferAvoidPods"] = AVOID_PODS
+        client.create_node(n)
+    parity_service(client)
+    for i in range(n_nodes // 10):
+        app = "web" if i % 2 == 0 else "db"
+        j = rng.randrange(n_nodes)
+        if app == "db":  # into the zone j mod 5 of the first five
+            j -= j % zones - j % (zones // 2)
+        client.create_pod(
+            make_pod(f"existing-{i}").node(f"n{j}").labels(app=app)
+            .container(cpu=str(rng.choice([1, 2, 4, 6])),
+                       memory=f"{rng.choice([1, 2, 3, 4])}Gi").obj())
+
+
+def score_parity_500_families(seed, n):
+    """``n`` families in tests/test_score_parity.py's proportions, in an
+    order shuffled by ``seed``."""
+    import random
+
+    fams = [PARITY_FAMILIES[i % len(PARITY_FAMILIES)] for i in range(n)]
+    random.Random(seed + 1).shuffle(fams)
+    return fams
+
+
+def parity_run(build, pods, *, batch, device, max_batch=64, scores=None):
+    """One scheduler over ``build``'s cluster and ``pods``: the batch
+    path (``schedule_batch`` by hand) or the sequential path
+    (``schedule_one``), both scoring every node and keeping the first of
+    tied nodes, synchronous binds. A failed pod's backoff is an hour, so
+    no retry interleaves with the run on either path and its batches do
+    not depend on the host's speed. ``scores`` collects the sequential
+    path's total score per pod and node."""
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(
+        client, informers, batch=batch, max_batch=max_batch,
+        percentage_of_nodes_to_score=100, rng=KeepFirstRng(),
+        async_binding=False, device=device,
+    )
+    sched.queue._initial_backoff = sched.queue._max_backoff = 3600.0
+    if scores is not None:
+        orig = sched.algorithm.prioritize_nodes
+
+        def recording(prof, state, pod, nodes):
+            out = orig(prof, state, pod, nodes)
+            scores[pod.metadata.name] = dict(out)
+            return out
+
+        sched.algorithm.prioritize_nodes = recording
+    try:
+        build(client)
+        informers.start()
+        informers.wait_for_cache_sync()
+        sched.queue.run()
+        client.create_pods_bulk(pods)
+        deadline = time.time() + PARITY_WAIT_S
+        while (sched.queue.num_pending()["active"] < len(pods)
+               and time.time() < deadline):
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        step = sched.schedule_batch if batch else sched.schedule_one
+        while step(timeout=0.5):
+            pass
+        seconds = time.perf_counter() - t0
+        if getattr(sched, "card_fault", None) is not None:
+            raise AssertionError(f"a card fault: {sched.card_fault!r}")
+        live = [p for p in client.list_pods()[0]
+                if not p.metadata.name.startswith("existing-")]
+        return dict(
+            placed={p.metadata.name: p.spec.node_name for p in live},
+            nominated={p.metadata.name: p.status.nominated_node_name
+                       for p in live if p.status.nominated_node_name},
+            pods_fallback=getattr(sched, "pods_fallback", 0),
+            nominee_routes=getattr(sched, "nominee_constrained_fallbacks", 0),
+            on_device=getattr(sched, "pods_solved_on_device", 0),
+            seconds=seconds,
+        )
+    finally:
+        sched.stop()
+        informers.stop()
+
+
+def parity_inputs(name):
+    """A parity row by name: (row, cluster builder, pod families)."""
+    if name == SCORE_PARITY_6["name"]:
+        return SCORE_PARITY_6, score_parity_6_cluster, PARITY_FAMILIES
+    row = SCORE_PARITY_500
+    seed = row["seed"]
+    return (row, lambda client: score_parity_500_cluster(client, seed),
+            score_parity_500_families(seed, row["pods"]))
+
+
+def parity_sequential(name):
+    """The sequential run of parity row ``name`` on the CPU, with the
+    sequential path's scores."""
+    row, build, families = parity_inputs(name)
+    scores = {}
+    out = parity_run(build, parity_pods(families, "seed" in row),
+                     batch=False, device="cpu", scores=scores)
+    out["scores"] = scores
+    return out
+
+
+def parity_sequential_cli(name):
+    """``parity_sequential(name)`` as a JSON line on stdout."""
+    print(json.dumps(parity_sequential(name)), flush=True)
+
+
+def start_parity_sequential(name):
+    """``parity_sequential(name)`` in a subprocess that sees no card, so
+    that it runs beside the card's work; ``finish_parity_sequential``
+    reads its answer."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.parity_sequential_cli({name!r})"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def finish_parity_sequential(name, proc):
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"{name}: the sequential run failed: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def parity_case(name, gk, ck, device=None, sequential=None):
+    """Parity row ``name`` through the batch path on ``device`` and
+    through the sequential path; the placements must be identical. The
+    sequential run is host code alone: it runs here after the batch run,
+    or in the subprocess ``sequential`` that ``start_parity_sequential``
+    started. Every pod where the two differ is printed with the
+    sequential path's scores of both nodes."""
+    row, build, families = parity_inputs(name)
+    on_card = device is None or str(device).startswith("cuda")
+    t0 = time.perf_counter()
+    try:
+        gk.launches = 0  # the counts of THIS run of the batch path
+        ck.launches = 0
+        bat = parity_run(build, parity_pods(families, "seed" in row),
+                         batch=True, device=device,
+                         max_batch=row["max_batch"])
+        k1, k2 = gk.launches, ck.launches
+    except BaseException:
+        if sequential is not None:
+            sequential.kill()
+            sequential.wait()
+        raise
+    seq = (parity_sequential(name) if sequential is None
+           else finish_parity_sequential(name, sequential))
+    scores = seq.pop("scores")
+    diffs = {}
+    for pod, node in seq["placed"].items():
+        got = bat["placed"].get(pod)
+        if got != node:
+            sc = scores.get(pod, {})
+            diffs[pod] = dict(sequential=node, batch=got,
+                              sequential_score=sc.get(node),
+                              batch_node_sequential_score=sc.get(got))
+    unbound = sorted(n for n, node in seq["placed"].items() if not node)
+    rec = dict(
+        row=name, source=row["source"], nodes=row["nodes"],
+        pods=len(families), seed=row.get("seed"), max_batch=row["max_batch"],
+        bound=len(seq["placed"]) - len(unbound), unbound=len(unbound),
+        differing=len(diffs), differences=diffs,
+        batch_pods_fallback=bat["pods_fallback"],
+        nominee_routes=bat["nominee_routes"],
+        batch_nominations=len(bat["nominated"]),
+        sequential_nominations=len(seq["nominated"]),
+        solved_on_device=bat["on_device"],
+        greedy_kernel_launches=k1, constrained_kernel_launches=k2,
+        sequential_seconds=seq["seconds"], batch_seconds=bat["seconds"],
+        seconds=time.perf_counter() - t0,
+    )
+    emit("parity", **rec)
+    if diffs:
+        raise AssertionError(f"{name}: {len(diffs)} pods placed apart")
+    if set(seq["placed"]) != set(bat["placed"]):
+        raise AssertionError(f"{name}: the two runs hold other pods")
+    if on_card and k1 + k2 <= 0:
+        raise AssertionError(f"{name}: neither K1 nor K2 launched")
+    if any(not n.startswith("anti-") for n in unbound):
+        raise AssertionError(f"{name}: unbound {unbound}")
+    if seq["nominated"]:
+        raise AssertionError(
+            f"{name}: the sequential path nominated {seq['nominated']}")
+    return rec, bat
+
+
+HOST_ORACLE = dict(
+    name="HostOraclePreemption/500", source="performance-config.yaml:19-23's "
+    "nodes, filled as :326-343's storm (3000m/6Gi at priority 0)",
+    nodes=500, fill_per_node=10, pod=dict(cpu="3000m", memory="6Gi"),
+    guarded_nodes=400, pdb_budget=16, preemptors=32, priority=100,
+    wait_s=120)
+
+
+def host_oracle_case(gk, ck, pk, device=None):
+    """HostOraclePreemption/500: a real wave down the host oracle on the
+    card's scheduler. SchedulingBasic/500's nodes (32 CPU / 64Gi / 110
+    pods), each filled with ten bound priority-0 pods of 3 CPU / 6Gi,
+    those of the last 400 nodes under a PDB that allows 16 evictions in
+    all,
+    plus one bound pod with required anti-affinity on node-0: no
+    preemptor is ``device_eligible`` while it exists. Then 32 preemptors
+    of 3 CPU / 6Gi at priority 100 through the batch scheduler, a
+    DisruptionController spending the budget. Every preemptor must bind,
+    each preemption on the host oracle (``host_preemptions`` moving by at
+    least 32, ``device_preemptions`` and K3's launches by none), every
+    victim at priority 0, no PDB status below 0, no card fault."""
+    from kubernetes_tpu_torch.api.types import (
+        LabelSelector, PodDisruptionBudget,
+    )
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.controllers import DisruptionController
+    from kubernetes_tpu_torch.scheduler.scheduler import new_scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    row = HOST_ORACLE
+    on_card = device is None or str(device).startswith("cuda")
+    t0 = time.perf_counter()
+    server = APIServer()
+    client = Client(server)
+    informers = InformerFactory(server)
+    sched = new_scheduler(client, informers, batch=True,
+                          max_batch=MAX_CONSTRAINED_BATCH, device=device)
+    dc = DisruptionController(client, informers)
+    preemptor = sched.preemptor
+    preemptor.disruption = dc
+    watch = None
+    try:
+        for i in range(row["nodes"]):
+            client.create_node(
+                make_node(f"node-{i}")
+                .capacity(cpu="32", memory="64Gi", pods=110)
+                .label(ZONE_KEY, f"zone-{i % 10}").label(HOST_KEY, f"node-{i}")
+                .obj())
+        # minAvailable leaves the budget for 16 evictions in all (a
+        # maxUnavailable would grow back as evicted pods leave the count)
+        pdb = PodDisruptionBudget(
+            selector=LabelSelector(match_labels={"app": "guarded"}),
+            min_available=row["guarded_nodes"] * row["fill_per_node"]
+            - row["pdb_budget"])
+        pdb.metadata.name = "guarded"
+        pdb.metadata.namespace = "default"
+        client.create_pdb(pdb)
+        fill = []
+        for i in range(row["nodes"]):
+            app = ("guarded" if i >= row["nodes"] - row["guarded_nodes"]
+                   else "fill")
+            for k in range(row["fill_per_node"]):
+                fill.append(make_pod(f"fill-{i}-{k}").node(f"node-{i}")
+                            .labels(app=app).priority(0)
+                            .container(**row["pod"]).obj())
+        for lo in range(0, len(fill), 1000):
+            client.create_pods_bulk(fill[lo:lo + 1000])
+        client.create_pod(
+            make_pod("anti-holder").node("node-0").labels(app="lonely")
+            .priority(0).container(cpu="100m", memory="128Mi")
+            .pod_affinity(HOST_KEY, {"app": "lonely"}, anti=True).obj())
+        informers.start()
+        informers.wait_for_cache_sync()
+        dc.start()
+        sched.queue.run()
+        sched.warmup()
+        deadline = time.time() + 30
+        while time.time() < deadline and not any(
+            p.status.disruptions_allowed for p in client.list_pdbs()[0]
+        ):
+            time.sleep(0.05)
+        pre = [make_pod(f"oracle-{i}").priority(row["priority"])
+               .container(**row["pod"]).obj()
+               for i in range(row["preemptors"])]
+        names = [p.metadata.name for p in pre]
+        watch = BindWatcher(server, names)
+        host0, dev0 = preemptor.host_preemptions, preemptor.device_preemptions
+        gk.launches = 0  # the counts of THIS run of the path
+        ck.launches = 0
+        pk.launches = 0
+        setup_s = time.perf_counter() - t0
+        start = time.perf_counter()
+        client.create_pods_bulk(pre)
+        sched.start()
+        completed = watch.wait(row["wait_s"])
+        elapsed = time.perf_counter() - start
+        sched.wait_for_inflight_binds(timeout=30)
+        k1, k2, k3 = gk.launches, ck.launches, pk.launches
+        host = preemptor.host_preemptions - host0
+        dev = preemptor.device_preemptions - dev0
+        fault = sched.card_fault
+    finally:
+        if watch is not None:
+            watch.stop()
+        sched.stop()
+        dc.stop()
+        informers.stop()
+    placed = {p.metadata.name: p.spec.node_name
+              for p in client.list_pods()[0]}
+    bound = sum(1 for nm in names if placed.get(nm))
+    victims = row["nodes"] * row["fill_per_node"] - sum(
+        1 for nm in placed if nm.startswith("fill-"))
+    guarded = row["guarded_nodes"] * row["fill_per_node"] - sum(
+        1 for nm in placed
+        if nm.startswith("fill-")
+        and int(nm.split("-")[1]) >= row["nodes"] - row["guarded_nodes"])
+    prios = deleted_priorities(server)
+    floor = pdb_floor(server)
+    rec = dict(
+        row=row["name"], source=row["source"], nodes=row["nodes"],
+        fill=row["nodes"] * row["fill_per_node"], preemptors=len(names),
+        bound=bound, seconds=elapsed, host_preemptions=host,
+        device_preemptions=dev, victims=victims, guarded_victims=guarded,
+        victim_priorities=sorted(prios), pdb_floor=floor,
+        greedy_kernel_launches=k1, constrained_kernel_launches=k2,
+        preempt_kernel_launches=k3,
+        card_fault=repr(fault) if fault is not None else None,
+        setup_seconds=setup_s,
+    )
+    emit("parity", **rec)
+    if fault is not None:
+        raise AssertionError(f"{row['name']}: a card fault: {fault!r}")
+    if not completed or bound != len(names):
+        raise AssertionError(f"{row['name']}: {bound}/{len(names)} bound")
+    if host < len(names) or dev or k3:
+        raise AssertionError(
+            f"{row['name']}: {host} host and {dev} device preemptions, "
+            f"{k3} K3 launches")
+    if (prios - {0} or floor < 0 or victims < len(names)
+            or guarded > row["pdb_budget"]):
+        raise AssertionError(
+            f"{row['name']}: victims {victims} ({guarded} guarded) of "
+            f"priorities {sorted(prios)}, a PDB at {floor}")
+    if on_card and k1 + k2 <= 0:
+        raise AssertionError(f"{row['name']}: neither K1 nor K2 launched")
+    return rec
+
+
+class OracleReplay:
+    """Records one K3 wave of a live preemptor for a replay through the
+    host oracle (``Preemptor._host_wave_answers``): the first wave for
+    which ``want(answers)`` holds and during which the scheduler's
+    snapshot did not move. Kept: a frozen copy of that snapshot, the
+    queue's nominations of every pod outside the wave, the wave's pods,
+    failures and PDBs, and K3's answer per pod (node, victims, PDB
+    violations)."""
+
+    def __init__(self, preemptor, want=lambda answers: True):
+        import copy
+
+        self.pre = preemptor
+        self.want = want
+        self.wave = None
+        self.armed = True
+        self.skipped = 0
+        self._items = threading.local()
+        orig_batch = preemptor.preempt_batch
+        orig_search = preemptor._device_search
+        self._restore = (orig_batch, orig_search)
+
+        def batch(prof, items):
+            self._items.value = items
+            try:
+                return orig_batch(prof, items)
+            finally:
+                self._items.value = None
+
+        def search(pods, potentials, pdbs):
+            if self.wave is not None or not self.armed:
+                return orig_search(pods, potentials, pdbs)
+            snap = preemptor.algorithm.snapshot
+            cursor = snap.change_cursor()
+            now = time.time()
+            frozen = self.freeze(snap)
+            noms = preemptor.queue.all_nominated_pods_by_node()
+            pdb_copy = copy.deepcopy(pdbs)
+            answers, tier = orig_search(pods, potentials, pdbs)
+            items = getattr(self._items, "value", None)
+            if answers is None or items is None or not self.want(answers):
+                return answers, tier
+            if snap.change_cursor() != cursor:
+                self.skipped += 1
+                return answers, tier
+            errs = {p.metadata.uid: fe for p, fe in items}
+            self.wave = dict(
+                snapshot=frozen, now=now, nominations=noms, pdbs=pdb_copy,
+                items=[(p, errs[p.metadata.uid]) for p in pods],
+                answers=[self.key(a) for a in answers],
+            )
+            return answers, tier
+
+        preemptor.preempt_batch = batch
+        preemptor._device_search = search
+
+    @staticmethod
+    def freeze(snapshot):
+        from kubernetes_tpu_torch.cache.snapshot import Snapshot
+
+        return Snapshot({ni.node_name: ni.clone()
+                         for ni in snapshot.list_node_infos()})
+
+    @staticmethod
+    def key(answer):
+        node, victims, violations = answer
+        return node, sorted(v.metadata.name for v in victims), violations
+
+    def close(self):
+        self.pre.preempt_batch, self.pre._device_search = self._restore
+
+    def replay(self, label, budget_s):
+        """The recorded wave's pods in order through the host oracle, on
+        a scratch queue holding the recorded nominations and a framework
+        of the default plugins over the frozen snapshot, as long as the
+        next pod fits in ``budget_s``. Each answer must equal K3's.
+
+        A victim with no start time counts as "now" (GetPodStartTime):
+        K3's pack reads the clock once per wave, the oracle at every
+        call, which breaks ties apart (ROADMAP.md Queue 3;
+        tests/test_torch_preemption_oracle.py pins it in both packages).
+        The replay reads it once, at the wave."""
+        from kubernetes_tpu_torch.framework.runtime import Framework
+        from kubernetes_tpu_torch.plugins import new_in_tree_registry
+        from kubernetes_tpu_torch.plugins.queuesort import PrioritySort
+        from kubernetes_tpu_torch.queue.scheduling_queue import PriorityQueue
+        from kubernetes_tpu_torch.scheduler.generic import GenericScheduler
+        from kubernetes_tpu_torch.scheduler.preemption import Preemptor
+        from kubernetes_tpu_torch.scheduler.provider import default_plugins
+
+        if self.wave is None:
+            raise AssertionError(f"{label}: no K3 wave was recorded")
+        w = self.wave
+        snap = w["snapshot"]
+        sorter = PrioritySort()
+        queue = PriorityQueue(sorter.queue_sort_less,
+                              sort_key_func=sorter.queue_sort_key)
+        wave_uids = {p.metadata.uid for p, _ in w["items"]}
+        for node, noms in w["nominations"].items():
+            for p in noms:
+                if p.metadata.uid not in wave_uids:
+                    queue.update_nominated_pod_for_node(p, node)
+        algorithm = GenericScheduler(None, snap,
+                                     nominated_pods_lister=queue)
+        prof = Framework(new_in_tree_registry(), default_plugins(),
+                         snapshot_provider=lambda: snap)
+        from kubernetes_tpu_torch.scheduler import preemption as pre_mod
+
+        oracle = Preemptor(algorithm, queue, None, device="cpu")
+        start_time = pre_mod.pod_start_time
+        pre_mod.pod_start_time = lambda p: (
+            p.status.start_time if p.status.start_time is not None
+            else w["now"])
+        t0 = time.perf_counter()
+        per_pod, nominating, differ = [], 0, []
+        try:
+            for k, item in enumerate(w["items"]):
+                spent = time.perf_counter() - t0
+                if per_pod and spent + max(per_pod) > budget_s:
+                    break
+                t = time.perf_counter()
+                got = self.key(
+                    oracle._host_wave_answers(prof, [item], w["pdbs"])[0])
+                per_pod.append(time.perf_counter() - t)
+                nominating += bool(got[0])
+                if got != w["answers"][k]:
+                    differ.append(dict(pod=item[0].metadata.name,
+                                       oracle=got, k3=w["answers"][k]))
+        finally:
+            pre_mod.pod_start_time = start_time
+        rec = dict(
+            wave=label, wave_pods=len(w["items"]), replayed=len(per_pod),
+            nominating=nominating,
+            victims=sum(len(a[1]) for a in w["answers"][:len(per_pod)]),
+            violations=sum(a[2] for a in w["answers"][:len(per_pod)]),
+            nominations_before=sum(len(v) for v in w["nominations"].values()),
+            per_pod_s=sum(per_pod) / len(per_pod), seconds=sum(per_pod),
+            waves_skipped=self.skipped, differing=differ,
+        )
+        emit("oracle_replay", **rec)
+        if differ:
+            raise AssertionError(
+                f"{label}: {len(differ)} of {len(per_pod)} pods answered "
+                f"apart by K3 and the host oracle: {differ[:3]}")
+        if not nominating:
+            raise AssertionError(f"{label}: the replayed pods nominate none")
+        return rec
+
+
+def nominates(answers):
+    return any(node for node, _, _ in answers)
+
+
+def parity(gk, ck, pk, device=None):
+    """The ``parity`` phase: ScoreParity/6 and ScoreParity/500 through
+    the batch path on the card and the sequential path, and
+    HostOraclePreemption/500. ScoreParity/500's sequential run, the
+    phase's longest part, runs in a subprocess from the phase's start."""
+    t0 = time.perf_counter()
+    name500 = SCORE_PARITY_500["name"]
+    seq500 = start_parity_sequential(name500)
+    try:
+        small, bat6 = parity_case(SCORE_PARITY_6["name"], gk, ck, device)
+        if small["batch_pods_fallback"]:
+            raise AssertionError("ScoreParity/6: the batch path fell back")
+        if bat6["placed"]["avoided"] == "n2":
+            raise AssertionError("ScoreParity/6: the avoided pod is on n2")
+        if small["unbound"] > 1:
+            raise AssertionError("ScoreParity/6: more than one pod unbound")
+        oracle = host_oracle_case(gk, ck, pk, device)
+    except BaseException:
+        seq500.kill()
+        seq500.wait()
+        raise
+    large, _ = parity_case(name500, gk, ck, device, sequential=seq500)
+    if large["solved_on_device"] <= 0:
+        raise AssertionError("ScoreParity/500: no pod solved on the device")
+    totals = dict(
+        greedy_kernel_launches=small["greedy_kernel_launches"]
+        + large["greedy_kernel_launches"] + oracle["greedy_kernel_launches"],
+        constrained_kernel_launches=small["constrained_kernel_launches"]
+        + large["constrained_kernel_launches"]
+        + oracle["constrained_kernel_launches"],
+        preempt_kernel_launches=oracle["preempt_kernel_launches"],
+    )
+    emit("parity_phase", seconds=time.perf_counter() - t0, **totals)
+    return totals
+
+
 def build_kernels(modules):
     """Build every kernel library, one nvcc each, all started together so
     the builds' time stays that of the slowest as kernels are added (a
@@ -9346,12 +10120,13 @@ def run_phases():
     parts = partitions(gk)
     ten = tenancy(gk, pk)
     cont = containment(gk)
-    pipe = pipeline(gk)
+    pipe = pipeline(gk, n_pods=PIPELINE_PODS)
     fam = constrained_families(gk, ck)
     gang = matrix_rows("gang", gk, GANG_ROWS)
     gpu = matrix_rows("gpu", gk, GPU_ROWS)
     succ = succession(gk)
     st = storm(gk, pk)
+    par = parity(gk, ck, pk)
     ext = extender(gk)
     lad = ladder_phase(gk)
     kernels = [dict(
@@ -9371,6 +10146,7 @@ def run_phases():
         + gpu["greedy_kernel_launches"]
         + succ["greedy_kernel_launches"]
         + st["greedy_kernel_launches"]
+        + par["greedy_kernel_launches"]
         + ext["greedy_kernel_launches"]
         + lad["greedy_kernel_launches"],
         max_abs_err=max_err,
@@ -9399,6 +10175,7 @@ def run_phases():
         replaces="kubernetes_tpu/ops/pallas_constrained.py:182",
         launches=sum(r["constrained_kernel_launches"] for r in rows)
         + fam["constrained_kernel_launches"]
+        + par["constrained_kernel_launches"]
         + lad["constrained_kernel_launches"],
         max_abs_err=c_max_err,
         ms=c_timing["ms"],
@@ -9415,6 +10192,7 @@ def run_phases():
         + life["preempt_kernel_launches"]
         + ten["preempt_kernel_launches"]
         + st["preempt_kernel_launches"]
+        + par["preempt_kernel_launches"]
         + lad["preempt_kernel_launches"],
         max_abs_err=p_max_err,
         ms=p_timing["ms"],

@@ -331,13 +331,35 @@ def test_non_gang_pods_unaffected(batch):
 # -- contention: room for about half the gangs, gangs split across batches ---
 
 
+def expire_permit_waits(st):
+    """Time out every pod waiting at Permit now, as its deadline passing
+    would: the pending plugins' deadlines move to the present and the
+    waiter wakes and rejects itself with the timeout's status."""
+    def expire(wp):
+        with wp._lock:
+            for name in wp._pending:
+                wp._pending[name] = wp._now()
+        wp._event.set()
+
+    for fw in st.sched.profiles.values():
+        fw.waiting_pods.iterate(expire)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_gang_contention_matches_the_jax_package(seed):
     """Eight gangs of 4-7 one-CPU pods on 6 nodes of 2-4 CPUs, three
     plain pods among them, ``max_batch`` 9: gangs split across batches
     and wait at Permit, gangs short of room fail their quorum and are
     re-solved away. Every gang binds whole or not at all, a gang that
-    did not bind holds nothing, and the JAX package decides alike."""
+    did not bind holds nothing, and the JAX package decides alike.
+
+    The run does not depend on the host's speed: the Permit timeouts of
+    gangs that cannot assemble fire once every batch has been solved
+    (the groups' own timeout is a minute, and the waits are then timed
+    out at once), and a failed pod's backoff is an hour, so no retry
+    interleaves with the batches. A 1 s timeout raced the batches: a
+    batch delayed past it by a loaded host failed a gang that assembles
+    on an idle one."""
     rng = random.Random(seed)
     caps = [rng.choice([2, 3, 4]) for _ in range(6)]
     sizes = [rng.choice([4, 5, 6, 7]) for _ in range(8)]
@@ -347,22 +369,27 @@ def test_gang_contention_matches_the_jax_package(seed):
         order.insert(rng.randrange(len(order) + 1), ("", j))
 
     def scenario(st):
+        st.sched.queue._initial_backoff = 3600.0
+        st.sched.queue._max_backoff = 3600.0
         for i, c in enumerate(caps):
             st.node(f"n{i}", cpu=str(c))
         for g, size in enumerate(sizes):
-            st.group(f"gang{g}", size, timeout=1)
+            st.group(f"gang{g}", size, timeout=60)
         for t, (g, k) in enumerate(order):
             st.pod(f"{g}-{k}" if g else f"plain-{k}", g or None, ts=float(t))
         st.sync(queued=len(order))
 
-        def quiet():
-            q = st.sched.queue.num_pending()
-            return not q["active"] and not any(
-                len(fw.waiting_pods) for fw in st.sched.profiles.values())
+        def waiting():
+            return any(len(fw.waiting_pods)
+                       for fw in st.sched.profiles.values())
 
-        # the batches, then the Permit timeouts of gangs that cannot
-        # assemble, then their members' retries
-        assert drive(st, quiet, timeout=20)
+        # every batch, then the Permit timeouts of gangs that cannot
+        # assemble
+        while st.sched.schedule_batch(timeout=0.2):
+            pass
+        assert not st.sched.queue.num_pending()["active"]
+        expire_permit_waits(st)
+        assert st.wait(lambda: not waiting(), timeout=20)
         st.sched.wait_for_inflight_binds()
         return st.outcome()
 

@@ -75,3 +75,18 @@ def test_row_waits_for_the_binds_the_stopping_loop_hands_off(
     assert held.is_set() and stopped.is_set()
     assert rec["bound"] >= int(ROW["min_bound_fraction"] * ROW["measured"])
     assert rec["bound"] <= ROW["nodes"] * 4
+
+
+def test_a_gang_row_chains_only_the_solves_that_stood(monkeypatch):
+    """A row checked against the host greedy chained over its solves,
+    whose gangs re-solve: GangContention/500's shapes with groups of 20
+    (room for half of them), cut to 100 nodes and 800 pods at max_batch
+    64. A re-solve's first attempt was rewound off the carry and is not
+    chained, a solve handed an uploaded state starts the chain again, and
+    a member masked at the commit is not placed; chaining every solve
+    (the harness before) failed on the rewound attempts."""
+    row = dict(ROW, gang=dict(group_size=20, min_member=20), chain=True)
+    monkeypatch.setattr(chip_smoke, "emit", lambda *a, **k: None)
+    rec = chip_smoke.matrix_row(row, greedy_kernel, device="cpu")
+    assert rec["gang_resolves"] >= 1
+    assert rec["bound"] % 20 == 0 and rec["groups_whole"] * 20 == rec["bound"]

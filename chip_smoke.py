@@ -105,7 +105,9 @@ line is printed only when every phase passed):
    span, no jit_recompile mark after warmup() sealed the build watch,
    scheduler_tpu_jit_compiles_total by signature equal to each kernel
    module's builds, a whole trace with one device-track solve per
-   dispatch, and the spine's self-time (costed at a per-operation rate
+   dispatch (the card's own time of the launch, from a CUDA event pair,
+   each lying between its batch's device_solve start and download end),
+   and the spine's self-time (costed at a per-operation rate
    measured in the run on a fresh FlightRecorder) under 1% of the hot
    stages; prints the event count and the share. Then
    SchedulingBasic/500 (performance-config.yaml:19-23: 500 nodes, 500
@@ -2890,6 +2892,10 @@ CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: (tests/test_flightrecorder.py's overhead guard)
 SPINE_HOT = ("pop_batch", "pack", "device_solve", "download", "commit")
 SPINE_SHARE_MAX = 0.01
+#: microseconds a device span may stray past its batch's host stages:
+#: the clock anchor's error (its event is read a few microseconds after
+#: it was enqueued on an idle stream)
+DEVICE_SPAN_SLACK_US = 50.0
 
 
 def time_span_ops(rec, pod_links, stages, n_ops):
@@ -2968,15 +2974,20 @@ def burst_spine(dispatched, uids, span0, t_marks, t_sealed, jit0, stages,
     with open(trace_path) as f:
         doc = json.load(f)
     events = doc["traceEvents"]
-    tracks = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    tracks = {e["args"]["name"] for e in events
+              if e["ph"] == "M" and e["name"] == "thread_name"}
     solves = [e for e in events if e["ph"] == "X"
               and e["name"].startswith("solve b=")]
-    if (len(events) != trace_events or "device" not in tracks
+    # the card's launches carry device spans; the CPU's solves have none
+    want = len(ids) if tier == "cuda" else 0
+    if (len(events) != trace_events or ("device" in tracks) != bool(want)
             or any(e["dur"] < 0 for e in events if e["ph"] == "X")
-            or len(solves) != len(ids)):
+            or len(solves) != want):
         raise AssertionError(
             f"the Chrome trace holds {len(events)} events, tracks {tracks}, "
             f"{len(solves)} device solves for {len(ids)} dispatches")
+    if want:
+        device_solve_window(events, solves, ids)
     hot_s = sum(stages.get(k, 0.0) for k in SPINE_HOT)
     rec = flightrecorder.FlightRecorder()
     width = max(p["b"] for p in dispatched)
@@ -2995,10 +3006,39 @@ def burst_spine(dispatched, uids, span0, t_marks, t_sealed, jit0, stages,
                for c in ("reuse", "delta", "upload")},
         jit_compiles=booked, jit_recompiles_after_warmup=0,
         trace_path=os.path.relpath(trace_path), trace_events=trace_events,
-        device_solve_events=len(solves), span_us=span_us, mark_us=mark_us,
+        device_solve_events=len(solves),
+        device_solve_ms=(sum(e["dur"] for e in solves) / len(solves) / 1e3
+                         if solves else None),
+        span_us=span_us, mark_us=mark_us,
         span_links=width, self_ms=self_s * 1e3, hot_ms=hot_s * 1e3,
         share=share,
     )
+
+
+def device_solve_window(events, solves, ids):
+    """Each device-track solve is its own dispatch's, one apiece, and
+    lies between that batch's device_solve start (the host's enqueue)
+    and its download end (the result on the host)."""
+    device = {e["tid"] for e in events if e["ph"] == "M"
+              and e["args"].get("name") == "device"}
+    stages = {}
+    for e in events:
+        if e["ph"] == "X" and e["name"] in ("device_solve", "download"):
+            stages.setdefault(e["args"]["batch"], {})[e["name"]] = e
+    if sorted(s["args"]["batch"] for s in solves) != sorted(ids):
+        raise AssertionError("the device solves are not one per dispatch")
+    for s in solves:
+        st = stages.get(s["args"]["batch"], {})
+        if s["tid"] not in device or len(st) != 2:
+            raise AssertionError(f"device solve {s} has no track or stages")
+        lo = st["device_solve"]["ts"] - DEVICE_SPAN_SLACK_US
+        hi = (st["download"]["ts"] + st["download"]["dur"]
+              + DEVICE_SPAN_SLACK_US)
+        if not lo <= s["ts"] <= s["ts"] + s["dur"] <= hi:
+            raise AssertionError(
+                f"device solve of batch {s['args']['batch']} at "
+                f"{s['ts']:.1f}+{s['dur']:.1f} us lies outside "
+                f"[{lo:.1f}, {hi:.1f}]")
 
 
 def burst(gk, device=None, mesh=None, sk=None):

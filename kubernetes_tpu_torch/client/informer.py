@@ -20,8 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch import native as _native
 from kubernetes_tpu_torch.robustness.faults import FaultPoint, get_injector
-from kubernetes_tpu_torch.utils import metrics
-from kubernetes_tpu_torch.utils import timeline as _timeline
+from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 from kubernetes_tpu_torch.apiserver.server import (
     ADDED,
@@ -185,8 +184,17 @@ class Informer:
         cache, queue -- and must not nest inside the store lock)."""
         if not evs:
             return
-        with _timeline.span(f"informer.apply[{self.kind}]"):
+        if not flightrecorder.trace_active():
             self._apply_batch_inner(evs)
+            return
+        # the informer thread's work per frame (apply, handlers, the
+        # queue's add), an ``ingest`` span on its track
+        t0 = time.perf_counter()
+        self._apply_batch_inner(evs)
+        flightrecorder.trace_span(
+            "ingest", t0, time.perf_counter() - t0,
+            args={"kind": self.kind, "events": len(evs)},
+        )
 
     def _apply_batch_inner(self, evs: List[WatchEvent]) -> None:
         fn, expected = _native.ingest_fn("ingest_apply")

@@ -49,6 +49,7 @@ from kubernetes_tpu_torch.ops.kernel_build import (
     build_library,
     check_tensor,
 )
+from kubernetes_tpu_torch.utils import flightrecorder
 
 __all__ = [
     "KernelError", "Rows", "build", "constrained_rows",
@@ -353,11 +354,16 @@ def constrained_solve_cuda(
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        # the card's own time of this launch, while a traced dispatch
+        # collects it: an event pair around the kernel alone
+        timed = flightrecorder.launch_begin()
         err = lib.constrained_solve_launch(
             ptr_arr, len(operands), dim_arr, len(dims),
             plan.cluster, plan.threads, int(plan.resident), plan.smem_bytes,
             stream,
         )
+        if timed is not None:
+            flightrecorder.launch_end(timed, "K2")
     if err != 0:
         raise KernelError(
             f"constrained_solve_kernel launch failed: cudaError {err}"

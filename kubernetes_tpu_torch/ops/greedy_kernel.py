@@ -46,6 +46,7 @@ from kubernetes_tpu_torch.ops.kernel_build import (
     build_library,
     check_tensor as _check,
 )
+from kubernetes_tpu_torch.utils import flightrecorder
 
 __all__ = [
     "KernelError", "build", "greedy_solve", "greedy_solve_cuda", "plan_for",
@@ -161,6 +162,9 @@ def greedy_solve_cuda(
     with torch.cuda.device(device):
         plan = _plan(lib, n, r, scored)
         stream = torch.cuda.current_stream(device).cuda_stream
+        # the card's own time of this launch, while a traced dispatch
+        # collects it: an event pair around the kernel alone
+        timed = flightrecorder.launch_begin()
         err = lib.greedy_solve_launch(
             *(t.data_ptr() for t in ops),
             asg.data_ptr(), req_out.data_ptr(), nzr_out.data_ptr(),
@@ -172,6 +176,8 @@ def greedy_solve_cuda(
             plan.cluster, plan.threads, int(plan.resident), plan.smem_bytes,
             stream,
         )
+        if timed is not None:
+            flightrecorder.launch_end(timed, "K1s" if scored else "K1")
     if err != 0:
         entry = "scored entry" if scored else "kernel"
         raise KernelError(f"greedy_solve {entry} launch failed: cudaError {err}")

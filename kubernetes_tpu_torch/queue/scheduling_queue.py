@@ -20,7 +20,7 @@ from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.framework.interface import PodInfo
 from kubernetes_tpu_torch.queue import events
 from kubernetes_tpu_torch.queue.heap import Heap
-from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0  # seconds
 DEFAULT_POD_MAX_BACKOFF = 10.0
@@ -199,6 +199,10 @@ class PriorityQueue:
         self.move_request_cycle = 0
         self._closed = False
         self.last_pop_wait_seconds = 0.0
+        # the part of it spent inside the batch window with pods in hand,
+        # and the active queue's length the drain left behind
+        self.last_pop_window_wait_seconds = 0.0
+        self.last_pop_queue_depth = 0
         # priority-band queue jumping (streaming subsystem): pods with
         # spec.priority >= band_threshold form the HIGH band. The heap
         # already sorts them first; the band additionally cuts the batch
@@ -548,12 +552,18 @@ class PriorityQueue:
         caller's stage timers can report drain WORK separately from
         idle wait (single dispatcher thread; stats only). Window waits
         cut short by a band arrival still count only the time actually
-        waited -- the split stays honest under band-aware drains."""
+        waited -- the split stays honest under band-aware drains.
+        ``last_pop_window_wait_seconds`` is the part of it spent inside
+        the batch window, after the first arrival, and
+        ``last_pop_queue_depth`` the active queue's length after the
+        drain (also a ``queue_depth`` counter sample in an armed trace)."""
         deadline = None if timeout is None else self._now() + timeout
         window_fn = window if callable(window) else None
         band = self.band_threshold
         batch: List[PodInfo] = []
         waited = 0.0
+        window_waited = 0.0
+        depth = len(self.active_q)
         has_high = False
         try:
             with self._cond:
@@ -614,10 +624,14 @@ class PriorityQueue:
                         break
                     t0 = time.perf_counter()
                     self._cond.wait(remaining)
-                    waited += time.perf_counter() - t0
+                    window_waited += time.perf_counter() - t0
+                depth = len(self.active_q)
+            flightrecorder.trace_counter("queue_depth", depth)
             return batch
         finally:
-            self.last_pop_wait_seconds = waited
+            self.last_pop_wait_seconds = waited + window_waited
+            self.last_pop_window_wait_seconds = window_waited
+            self.last_pop_queue_depth = depth
 
     @staticmethod
     def _observe_band_waits(

@@ -127,7 +127,6 @@ from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 from kubernetes_tpu_torch.tensors import NodeTensorCache, pack_pod_batch
 from kubernetes_tpu_torch.utils import flightrecorder
 from kubernetes_tpu_torch.utils import metrics
-from kubernetes_tpu_torch.utils import timeline
 
 try:
     from kubernetes_tpu_torch.native import assume_clones as _assume_clones
@@ -724,8 +723,11 @@ class BatchScheduler(Scheduler):
         # span it dispatches (pop_batch drains before the flush loop
         # splits batches, so the pop cost belongs to the drain's head)
         # (drain-work seconds, arrival-wait seconds, pop-start
-        # perf_counter) of the current drain
-        self._pop_note: Optional[Tuple[float, float, float]] = None
+        # perf_counter, window-wait seconds, queue depth left behind) of
+        # the current drain
+        self._pop_note: Optional[
+            Tuple[float, float, float, float, int]
+        ] = None
         # runtime kernel-build watchdog: sealed at the end of warmup();
         # unsealed growth still counts builds, it just isn't flagged as
         # a mid-run build (tests that skip warmup stay quiet)
@@ -841,11 +843,20 @@ class BatchScheduler(Scheduler):
         # (burst still streaming in, or plain idle) is not hot-path time
         # and would drown the pop_batch share the profile exists to watch
         waited = getattr(self.queue, "last_pop_wait_seconds", 0.0)
+        # the part of the wait spent inside the batch window, pods in hand
+        window_waited = getattr(
+            self.queue, "last_pop_window_wait_seconds", 0.0
+        )
         self._stage_add("pop_batch", max(0.0, dt_pop - waited))
         if waited:
             self._stage_add("pop_wait", waited)
+        if window_waited:
+            self._stage_add("window_wait", window_waited)
         # the first span this drain dispatches claims the pop timings
-        self._pop_note = (max(0.0, dt_pop - waited), waited, t_pop)
+        self._pop_note = (
+            max(0.0, dt_pop - waited), waited, t_pop, window_waited,
+            getattr(self.queue, "last_pop_queue_depth", 0),
+        )
         guard = self._gc_guard
         if not batch_infos:
             # idle: finish whatever is still in flight
@@ -1936,7 +1947,6 @@ class BatchScheduler(Scheduler):
         un-booking -- instead of routing the batch to containment or
         the sequential floor (the bisection loop owns that batch's
         disposition)."""
-        timeline.mark(f"dispatch_start b={len(solver_infos)}")
         if not raise_on_exhaust:
             inj0 = get_injector()
             if inj0 is not None and inj0.should_fire(
@@ -1965,12 +1975,19 @@ class BatchScheduler(Scheduler):
             pop_note = self._pop_note
             if pop_note is not None:
                 self._pop_note = None
-                work, pop_waited, t_pop0 = pop_note
+                work, pop_waited, t_pop0, window_waited, depth = pop_note
                 # the drain blocks for arrivals first, then drains:
-                # wait span at t_pop0, work span after it
+                # wait span at t_pop0 (the batch window's waits at its
+                # end, a child span), work span after it
                 if pop_waited:
                     span.stage("pop_wait", pop_waited, t0=t_pop0)
-                span.stage("pop_batch", work, t0=t_pop0 + pop_waited)
+                    if window_waited:
+                        span.stage(
+                            "window_wait", window_waited,
+                            t0=t_pop0 + pop_waited - window_waited,
+                        )
+                span.stage("pop_batch", work, t0=t_pop0 + pop_waited,
+                           args={"queue_depth": depth})
             if inactive_uids:
                 span.note(gang_redispatch=True)
             if raise_on_exhaust:
@@ -2034,7 +2051,13 @@ class BatchScheduler(Scheduler):
             if not reason_predicate or not self._pending_exists():
                 return False
             self.pipeline_drains += 1
+            # the dispatcher's wait for the in-flight batches to land: a
+            # child of the pack stage, summed apart as drain_wait
+            t_drain = time.perf_counter()
             self._drain_pending()
+            dt_drain = time.perf_counter() - t_drain
+            self._stage_add("drain_wait", dt_drain)
+            span.stage("drain_wait", dt_drain, t0=t_drain)
             # the drain can assume previously nominated pods (dropping
             # their nomination) and nominate new ones via preemption --
             # rebuild the overlay source from the post-drain state
@@ -2132,14 +2155,14 @@ class BatchScheduler(Scheduler):
                 self.pods_fallback += 1
                 self.attempt_schedule(pi)
             return None
-        with timeline.span("nt.update"):
+        with flightrecorder.substep("nt.update", span):
             nt = self.tensor_cache.update(snapshot)
-        with timeline.span("pack_pod_batch"):
+        with flightrecorder.substep("pack_pod_batch", span):
             batch = pack_pod_batch(
                 pods, nt.dims,
                 timestamps=[pi.timestamp for pi in solver_infos],
             )
-        with timeline.span("static_mask"):
+        with flightrecorder.substep("static_mask", span):
             mask_rows, mask_index = static_mask_compact(pods, snapshot, nt)
         # pods requesting resources no node advertises are unsatisfiable:
         # point them at a dedicated all-False row
@@ -2255,13 +2278,15 @@ class BatchScheduler(Scheduler):
                 hard_w = getattr(
                     ipa_plugin, "hard_pod_affinity_weight", 1
                 ) if ipa_plugin is not None else 1
-            score_batch = pack_score_batch(
-                ordered_pods, snapshot, nt,
-                prof0.informers if prof0 is not None else None,
-                prof0.score_plugin_weights() if prof0 is not None else {},
-                hard_pod_affinity_weight=hard_w,
-                cluster_affinity_scoring=cluster_ipa,
-            )
+            with flightrecorder.substep("pack_score_batch", span):
+                score_batch = pack_score_batch(
+                    ordered_pods, snapshot, nt,
+                    prof0.informers if prof0 is not None else None,
+                    prof0.score_plugin_weights()
+                    if prof0 is not None else {},
+                    hard_pod_affinity_weight=hard_w,
+                    cluster_affinity_scoring=cluster_ipa,
+                )
         except ScoreEnvelopeExceeded:
             # the sequential path filters against the host cache, which
             # must include every in-flight placement
@@ -2276,7 +2301,8 @@ class BatchScheduler(Scheduler):
         spread = None
         affinity = None
         if has_hard_spread:
-            spread = pack_spread_batch(ordered_pods, snapshot, nt)
+            with flightrecorder.substep("pack_spread_batch", span):
+                spread = pack_spread_batch(ordered_pods, snapshot, nt)
             if spread is None:
                 # envelope exceeded: host path keeps full correctness
                 self.envelope_fallbacks += 1
@@ -2288,7 +2314,8 @@ class BatchScheduler(Scheduler):
                     self.attempt_schedule(pi)
                 return None
         if has_affinity:
-            affinity = pack_affinity_batch(ordered_pods, snapshot, nt)
+            with flightrecorder.substep("pack_affinity_batch", span):
+                affinity = pack_affinity_batch(ordered_pods, snapshot, nt)
             if affinity is None and has_affinity_terms:
                 # envelope exceeded (real affinity/exist rows expected
                 # but the packer bailed): the host path keeps full
@@ -2524,6 +2551,11 @@ class BatchScheduler(Scheduler):
             if self.ladder.config.enabled else 0.0
         )
 
+        # the kernel launches of the attempt that answered, as CUDA event
+        # pairs (only while the trace is armed on the card): the
+        # committer writes them onto the trace's device track
+        launched: list = []
+
         def run_device():
             if poison_key is not None:
                 raise PoisonError(poison_key)
@@ -2540,18 +2572,24 @@ class BatchScheduler(Scheduler):
                         # device answers nothing, so no late launch
                         raise FaultInjected(FaultPoint.DEVICE_SOLVE_HANG)
                 inj.raise_maybe(FaultPoint.DEVICE_SOLVE)
-            return solve_packed(
-                pieces,
-                alloc_in,
-                valid_in,
-                req_in,
-                nzr_in,
-                config=self.solver_config,
-                mode=solve_mode,
-                compress=compress,
-                device=self.device,
-                mesh=self.mesh,
-            )
+            sink = flightrecorder.collect_launches()
+            try:
+                return solve_packed(
+                    pieces,
+                    alloc_in,
+                    valid_in,
+                    req_in,
+                    nzr_in,
+                    config=self.solver_config,
+                    mode=solve_mode,
+                    compress=compress,
+                    device=self.device,
+                    mesh=self.mesh,
+                )
+            finally:
+                if sink is not None:
+                    flightrecorder.close_launches()
+                    launched[:] = sink
 
         def run_host_greedy():
             if poison_key is not None:
@@ -2599,21 +2637,12 @@ class BatchScheduler(Scheduler):
                 {"injected_hang": lambda: bool(hangs) and hangs[-1] > 0}
                 if on_card else {}
             )
-            with timeline.span("solve_dispatch"):
-                tier, out = self.ladder.run(
-                    attempts, label=f"batch b={b}", **hang_kw
-                )
+            tier, out = self.ladder.run(
+                attempts, label=f"batch b={b}", **hang_kw
+            )
             dt_solve = time.perf_counter() - t_solve
             self._stage_add("device_solve", dt_solve)
             span.stage("device_solve", dt_solve, t0=t_solve)
-            if flightrecorder.trace_active():
-                # the device's own track, next to the host threads
-                flightrecorder.trace_span(
-                    f"solve b={b}", t_solve, dt_solve,
-                    track="device",
-                    args={"batch": span.batch_id, "tier": tier}
-                    if span else None,
-                )
             self._jit_watch.refresh()
         except LadderExhausted as exhaust_err:
             injected = isinstance(exhaust_err.__cause__, FaultInjected)
@@ -2747,6 +2776,7 @@ class BatchScheduler(Scheduler):
             "order": order,
             "assignments_dev": assignments_dev,
             "download": self._eager_download(assignments_dev),
+            "launched": launched,
             "req": req,
             "nzr": nzr,
             "b": b,
@@ -3393,13 +3423,18 @@ class BatchScheduler(Scheduler):
         fspan = p.get("span") or flightrecorder.NULL_SPAN
         try:
             t_dl = time.perf_counter()
-            with timeline.span("download"):
-                assignments = self.ladder.watchdog.call(
-                    download, timeout, tier=tier
-                )
+            assignments = self.ladder.watchdog.call(
+                download, timeout, tier=tier
+            )
             dt_dl = time.perf_counter() - t_dl
             self._stage_add("download", dt_dl)
             fspan.stage("download", dt_dl, t0=t_dl)
+            # the result is on the host, so the launch's events have
+            # completed: its device time goes onto the device track
+            flightrecorder.device_spans(
+                p.get("launched"), f"solve b={p['b']}",
+                {"batch": getattr(fspan, "batch_id", None), "tier": tier},
+            )
         except SolveTimeout:
             if breaker is not None:
                 breaker.force_open()
@@ -3507,14 +3542,13 @@ class BatchScheduler(Scheduler):
             self._corrupt_carry_row()
         t_commit = time.perf_counter()
         try:
-            with timeline.span("commit_batch"):
-                self._commit_batch(
-                    p["solver_infos"], p["order"], assignments, p["names"],
-                    p["num_nodes"], p["snapshot"], p["cycle"],
-                    mask_info=(p.get("mask_rows"), p.get("mask_index_solved")),
-                    gang_failed_uids=p.get("gang_failed_uids"),
-                    span=fspan,
-                )
+            self._commit_batch(
+                p["solver_infos"], p["order"], assignments, p["names"],
+                p["num_nodes"], p["snapshot"], p["cycle"],
+                mask_info=(p.get("mask_rows"), p.get("mask_index_solved")),
+                gang_failed_uids=p.get("gang_failed_uids"),
+                span=fspan,
+            )
         finally:
             if delta is not None:
                 # the host cache now holds what this commit assumed; a
@@ -3525,15 +3559,6 @@ class BatchScheduler(Scheduler):
         dt_commit = time.perf_counter() - t_commit
         self._stage_add("commit", dt_commit)
         fspan.stage("commit", dt_commit, t0=t_commit)
-        if flightrecorder.trace_active():
-            # the committer's own named track: in the Perfetto artifact
-            # this span overlaps the "device" track's next solve span,
-            # making the solve/commit pipeline overlap visible
-            flightrecorder.trace_span(
-                f"commit b={b}", t_commit, dt_commit,
-                track="committer",
-                args={"batch": getattr(fspan, "batch_id", None)},
-            )
         fspan.finish()
         if (
             self._prewarm_next_commit
@@ -3621,7 +3646,7 @@ class BatchScheduler(Scheduler):
                 for pi in solver_infos
             )
         if fast:
-            with timeline.span("commit.gather"):
+            with flightrecorder.substep("commit.gather", span):
                 head = np.asarray(assignments[:b])
                 grp = np.argsort(head, kind="stable")
                 n_unplaced = int((head == NO_NODE).sum())
@@ -3694,18 +3719,17 @@ class BatchScheduler(Scheduler):
                 else:
                     slow.append((pi, choice, k))
             if plain:
-                with timeline.span("commit.clone"):
-                    if _assume_clones is not None:
-                        clones = _assume_clones(
-                            [pi.pod for pi, _ in plain],
-                            [host for _, host in plain],
-                        )
-                    else:
-                        clones = []
-                        for pi, host in plain:
-                            assumed = pi.pod.assumed_clone()
-                            assumed.spec.node_name = host
-                            clones.append(assumed)
+                if _assume_clones is not None:
+                    clones = _assume_clones(
+                        [pi.pod for pi, _ in plain],
+                        [host for _, host in plain],
+                    )
+                else:
+                    clones = []
+                    for pi, host in plain:
+                        assumed = pi.pod.assumed_clone()
+                        assumed.spec.node_name = host
+                        clones.append(assumed)
                 plain_pis = [pi for pi, _ in plain]
                 hosts = [host for _, host in plain]
 
@@ -3713,7 +3737,7 @@ class BatchScheduler(Scheduler):
         deferred: List[Tuple] = []  # sync-mode Permit waiters
         unassumed: List[str] = []  # placed on the device, not in the cache
         if plain_pis:
-            with timeline.span("commit.assume"):
+            with flightrecorder.substep("commit.assume", span):
                 # on the fast path the argsort grouped the clones by
                 # target node, so the cache lands them as per-node runs
                 # (one node lookup + one generation bump per run)
@@ -3966,10 +3990,9 @@ class BatchScheduler(Scheduler):
         for prof, items in by_prof.values():
             victim_uids: Optional[List[str]] = []
             try:
-                with timeline.span("preempt_wave"):
-                    nominated, victim_uids = self.preemptor.preempt_batch(
-                        prof, [(pi.pod, fe) for pi, fe, _ in items]
-                    )
+                nominated, victim_uids = self.preemptor.preempt_batch(
+                    prof, [(pi.pod, fe) for pi, fe, _ in items]
+                )
             except CardFault as e:
                 # a fault of the card's victim search (K3) is not
                 # answered by an empty wave that requeues and retries
@@ -3997,31 +4020,29 @@ class BatchScheduler(Scheduler):
             # an instant retry against a cache that still holds the
             # victims would waste a scheduling cycle
             if victim_uids:
-                with timeline.span("victim_wait"):
-                    deadline = time.monotonic() + 0.5
-                    pending = list(victim_uids)
-                    while pending and time.monotonic() < deadline:
-                        pending = [
-                            u for u in pending
-                            if self.cache.has_pod_uid(u)
-                        ]
-                        if pending:
-                            time.sleep(0.002)
-            with timeline.span("preempt_requeue"):
-                for (pi, fe, cycle), node in zip(items, nominated):
-                    if self.cache.has_pod_uid(pi.pod.metadata.uid):
-                        # stale parked record: the pod bound during the
-                        # deferral window (an informer update re-added
-                        # it); requeueing it would double-place a
-                        # running pod
-                        continue
-                    self.record_scheduling_failure(
-                        prof, pi, str(fe), "Unschedulable", node, cycle,
-                        # no-backoff retry only when the wave actually
-                        # evicted: otherwise the failure is persistent
-                        # and the 1s backoff must damp it
-                        skip_backoff=bool(node) and evict_ok,
-                    )
+                deadline = time.monotonic() + 0.5
+                pending = list(victim_uids)
+                while pending and time.monotonic() < deadline:
+                    pending = [
+                        u for u in pending
+                        if self.cache.has_pod_uid(u)
+                    ]
+                    if pending:
+                        time.sleep(0.002)
+            for (pi, fe, cycle), node in zip(items, nominated):
+                if self.cache.has_pod_uid(pi.pod.metadata.uid):
+                    # stale parked record: the pod bound during the
+                    # deferral window (an informer update re-added
+                    # it); requeueing it would double-place a
+                    # running pod
+                    continue
+                self.record_scheduling_failure(
+                    prof, pi, str(fe), "Unschedulable", node, cycle,
+                    # no-backoff retry only when the wave actually
+                    # evicted: otherwise the failure is persistent
+                    # and the 1s backoff must damp it
+                    skip_backoff=bool(node) and evict_ok,
+                )
             if any(nominated):
                 # once these preemptors bind, the cluster is full again:
                 # refresh the victim pack so the NEXT contention wave
@@ -4284,7 +4305,7 @@ class BatchScheduler(Scheduler):
             return
         assumed_list = [t[3] for t in ready]
         bind_timer = metrics.SinceTimer(metrics.binding_duration)
-        with timeline.span("bind_bulk"):
+        with flightrecorder.substep("bind_bulk", span):
             errors = self._bind_bulk_with_retry(assumed_list)
         bind_timer.observe()
         if errors:
@@ -4325,8 +4346,7 @@ class BatchScheduler(Scheduler):
             bound_assumed = assumed_list
         if not bound:
             return
-        with timeline.span("finish_binding_bulk"):
-            self.cache.finish_binding_bulk(bound_assumed)
+        self.cache.finish_binding_bulk(bound_assumed)
         if any(p.has_plugins("post_bind") for p in profs.values()):
             for prof, state, pi, assumed, host in bound:
                 if prof.has_plugins("post_bind"):
@@ -4338,8 +4358,7 @@ class BatchScheduler(Scheduler):
         # mixed bulk passes recorder=None so _emit_bound's fallback
         # routes each event through the pod's own profile recorder
         recorder = bound[0][0].recorder if len(profs) == 1 else None
-        with timeline.span("events+metrics"):
-            self._emit_bound(recorder, bound)
+        self._emit_bound(recorder, bound)
         # arm the bind-ack ledger: each committed bind is pending until
         # its Running ack arrives over the watch (zombie-kubelet
         # detection -- scheduler/bindack.py)
@@ -4549,11 +4568,17 @@ class BatchScheduler(Scheduler):
     # -- loop ---------------------------------------------------------------
 
     def run(self) -> None:
-        from kubernetes_tpu_torch.utils.gc_tuning import GCBatchGuard
+        from kubernetes_tpu_torch.utils.gc_tuning import (
+            PAUSE_HOOK,
+            GCBatchGuard,
+        )
 
         self.queue.run()
         self._gc_guard = GCBatchGuard()
         self._loop_lands_inflight = True
+        # every collection while the loop is up, on any thread: the
+        # pause counter, and a gc span in an armed trace
+        PAUSE_HOOK.install()
         try:
             while not self._stop.is_set():
                 # in-flight batches land on the committer thread, so the
@@ -4574,3 +4599,4 @@ class BatchScheduler(Scheduler):
                 self._bind_pool.shutdown(wait=False)
             guard, self._gc_guard = self._gc_guard, None
             guard.close()
+            PAUSE_HOOK.remove()

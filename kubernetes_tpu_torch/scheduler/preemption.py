@@ -434,7 +434,6 @@ class Preemptor:
             victims_for_node,
         )
         from kubernetes_tpu_torch.tensors import pack_pod_batch
-        from kubernetes_tpu_torch.utils import timeline as _tl
 
         if snapshot is not None:
             # private-snapshot path (drain planning): a PERSISTENT
@@ -459,8 +458,7 @@ class Preemptor:
             key = self._pack_cache_key(snapshot, pdbs)
             pack = self._plan_pack if self._plan_pack_key == key else None
             if pack is None:
-                with _tl.span("pack_build"):
-                    pack = pack_preemption_state(snapshot, nt, pdbs)
+                pack = pack_preemption_state(snapshot, nt, pdbs)
                 self._plan_pack = pack
                 self._plan_pack_key = key
         else:
@@ -470,7 +468,7 @@ class Preemptor:
             with self._nt_lock:
                 nt = self._tensor_cache.update(snapshot)
             key = self._pack_cache_key(snapshot, pdbs)
-            with _tl.span("pack_wait"), self._pack_cv:
+            with self._pack_cv:
                 # a prewarm in flight is about to deliver this exact
                 # pack: wait for it instead of duplicating the packing
                 # work
@@ -483,8 +481,7 @@ class Preemptor:
                     self._pack_cv.wait(0.05)
                 pack = self._pack if self._pack_key == key else None
             if pack is None:
-                with _tl.span("pack_build"):
-                    pack = pack_preemption_state(snapshot, nt, pdbs)
+                pack = pack_preemption_state(snapshot, nt, pdbs)
                 with self._pack_cv:
                     self._pack = pack
                     self._pack_key = key
@@ -585,10 +582,9 @@ class Preemptor:
             )
 
         tier_name = TIER_CUDA if self.device.type == "cuda" else TIER_TORCH
-        with _tl.span("preempt_device"):
-            tier, (chosen, victims, viol, nviol) = self.ladder.run(
-                [(tier_name, run)], label="preempt_wave"
-            )
+        tier, (chosen, victims, viol, nviol) = self.ladder.run(
+            [(tier_name, run)], label="preempt_wave"
+        )
         if prio_override is None:
             # a drain PLAN's solve must not relabel the eviction ledger
             # a concurrent preempt() is about to book against

@@ -28,10 +28,18 @@ degraded-health gauge. Chaos e2es assert against ``RECORDER.dump()``
 instead of grepping logs.
 
 The module doubles as the Chrome-trace event sink: ``start_trace()``
-arms a buffer (bench.py --trace) and every span stage / instant mark
-also lands there as a Chrome-trace event; ``export_chrome_trace``
-writes JSON that loads in ui.perfetto.dev. Zero cost when not armed
-(one None check).
+arms a buffer and every span stage / instant mark also lands there as a
+Chrome-trace event; ``export_chrome_trace`` writes JSON that loads in
+ui.perfetto.dev. Zero cost when not armed (one None check). Besides the
+stages, an armed buffer takes child spans of a stage (``substep``), the
+collector's pauses (``gc_pause``, fed by ``utils/gc_tuning``), counter
+tracks (``trace_counter``), and the card's own time per kernel launch
+(``launch_begin``/``launch_end`` at the launch site, ``device_spans``
+once the launch's result is on the host) on the ``device`` track, put
+on the host's ``perf_counter`` clock through an anchor event that
+``start_trace`` records. ``clock_sync`` metadata events at the start and
+the stop pair ``perf_counter`` with the wall clock that
+``torch.profiler`` stamps.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -91,14 +100,16 @@ class BatchSpan:
         self.extra: Optional[dict] = None
 
     def stage(self, name: str, seconds: float,
-              t0: Optional[float] = None) -> None:
+              t0: Optional[float] = None,
+              args: Optional[dict] = None) -> None:
         """Accumulate one stage's wall clock; when the Chrome-trace
         buffer is armed the stage also lands there as a duration event
-        on the calling thread's track (t0 = perf_counter at start)."""
+        on the calling thread's track (t0 = perf_counter at start), with
+        ``args`` beside the batch id."""
         self.stages[name] = self.stages.get(name, 0.0) + seconds
         if _trace is not None and t0 is not None:
             trace_span(name, t0, seconds,
-                       args={"batch": self.batch_id})
+                       args={"batch": self.batch_id, **(args or {})})
 
     def note(self, **fields) -> None:
         for k, v in fields.items():
@@ -172,7 +183,7 @@ class _NullSpan:
 
     __slots__ = ()
 
-    def stage(self, name, seconds, t0=None):
+    def stage(self, name, seconds, t0=None, args=None):
         pass
 
     def note(self, **fields):
@@ -288,20 +299,73 @@ def dump_on_degraded(reason: str) -> Optional[str]:
     return RECORDER.dump_to_file(reason)
 
 
-# -- Chrome-trace event buffer (bench.py --trace) ------------------------
+# -- Chrome-trace event buffer -------------------------------------------
 
 _trace: Optional[list] = None
 _trace_lock = threading.Lock()
 _trace_tids: Dict[str, int] = {}
+#: collections seen while armed: (thread name, start, seconds,
+#: generation, collected). A gc callback appends here without a lock,
+#: since a collection can start inside any allocation, also one made
+#: under ``_trace_lock``; ``stop_trace`` turns them into spans
+_gc_spans: List[tuple] = []
+#: (device index, CUDA event, perf_counter s): the clock anchor that
+#: ``start_trace`` records when the card is in use
+_anchor: Optional[tuple] = None
+#: per thread: the list a dispatch collects its kernel launches into
+_launch_local = threading.local()
+
+
+def _clock_sync(at: str) -> dict:
+    """A metadata event pairing ``perf_counter`` (the spans' clock) with
+    the wall clock (``torch.profiler``'s), so a joiner reads the offset
+    at the start and its drift at the stop."""
+    return {
+        "ph": "M", "name": "clock_sync", "pid": 1, "tid": 0,
+        "args": {"at": at, "perf_counter_ns": time.perf_counter_ns(),
+                 "time_ns": time.time_ns()},
+    }
+
+
+#: tries at the clock anchor; the one whose enqueue the host clock
+#: brackets most tightly is kept
+ANCHOR_TRIES = 16
+
+
+def _device_anchor() -> Optional[tuple]:
+    """When torch is loaded and CUDA initialised: a timing event recorded
+    on the idle current stream, with the perf_counter read right after
+    it was enqueued (synchronizes here, never on the hot path). The
+    record lets go of the interpreter, and another thread holding it can
+    delay the read by milliseconds, so of several tries the one read
+    soonest after its record is kept."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    best = None
+    for _ in range(ANCHOR_TRIES):
+        torch.cuda.synchronize()
+        event = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        event.record()
+        h1 = time.perf_counter()
+        if best is None or h1 - h0 < best[0]:
+            best = (h1 - h0, event, h1)
+    torch.cuda.synchronize()
+    return torch.cuda.current_device(), best[1], best[2]
 
 
 def start_trace() -> None:
-    """Arm the Chrome-trace buffer: from here every span stage, arrival
-    stall, and autobatch decision lands as a trace event."""
-    global _trace
+    """Arm the Chrome-trace buffer: from here every span stage, child
+    span, collection, device launch, arrival stall and autobatch
+    decision lands as a trace event."""
+    global _trace, _anchor
+    anchor = _device_anchor()
     with _trace_lock:
-        _trace = []
+        _trace = [_clock_sync("start")]
         _trace_tids.clear()
+        _gc_spans.clear()
+        _anchor = anchor
 
 
 def trace_active() -> bool:
@@ -361,13 +425,146 @@ def trace_instant(name: str, args: Optional[dict] = None,
         _trace.append(ev)
 
 
-def stop_trace() -> List[dict]:
-    """Disarm and return the collected events."""
-    global _trace
+def trace_counter(name: str, value: float) -> None:
+    """One sample of a counter track ('C'), stamped now."""
+    if _trace is None:
+        return
     with _trace_lock:
-        events, _trace = (_trace or []), None
+        if _trace is None:
+            return
+        _trace.append({
+            "ph": "C", "name": name, "pid": 1,
+            "ts": time.perf_counter() * 1e6, "args": {name: value},
+        })
+
+
+class _Substep:
+    __slots__ = ("name", "batch", "t0")
+
+    def __init__(self, name: str, batch: Optional[int]) -> None:
+        self.name = name
+        self.batch = batch
+
+    def __enter__(self) -> "_Substep":
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        trace_span(self.name, self.t0, time.perf_counter() - self.t0,
+                   args=None if self.batch is None
+                   else {"batch": self.batch})
+
+
+class _NullSubstep:
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSubstep":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NULL_SUBSTEP = _NullSubstep()
+
+
+def substep(name: str, span=None):
+    """A child span inside a stage, on the calling thread's track, with
+    the batch id of ``span`` (a BatchSpan); a no-op unless armed."""
+    if _trace is None:
+        return _NULL_SUBSTEP
+    return _Substep(name, getattr(span, "batch_id", None))
+
+
+def gc_pause(thread: str, t0: float, seconds: float, generation: int,
+             collected: int) -> None:
+    """One collection, reported by the gc callback: kept aside while
+    armed and written as a ``gc`` span on ``thread``'s track when the
+    trace stops. Takes no lock (see ``_gc_spans``)."""
+    if _trace is not None:
+        _gc_spans.append((thread, t0, seconds, generation, collected))
+
+
+# -- the card's own time per kernel launch --------------------------------
+
+def collect_launches() -> Optional[list]:
+    """While the trace is armed on the card: route the kernel launches
+    this thread makes until ``close_launches`` into the returned list,
+    as (kernel, start event, end event). None otherwise."""
+    if _trace is None or _anchor is None:
+        return None
+    sink: list = []
+    _launch_local.sink = sink
+    return sink
+
+
+def close_launches() -> None:
+    _launch_local.sink = None
+
+
+def launch_begin():
+    """At a launch site, right before the launch: a timing event on the
+    current stream when this thread collects launches on the anchor's
+    device; else None."""
+    if getattr(_launch_local, "sink", None) is None:
+        return None
+    anchor = _anchor
+    torch = sys.modules["torch"]
+    if anchor is None or torch.cuda.current_device() != anchor[0]:
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    return start
+
+
+def launch_end(start, kernel: str) -> None:
+    """Right after the launch, before anything else is enqueued on the
+    stream: the end event, kept with ``start`` in this thread's list."""
+    sink = getattr(_launch_local, "sink", None)
+    if sink is None:
+        return
+    end = sys.modules["torch"].cuda.Event(enable_timing=True)
+    end.record()
+    sink.append((kernel, start, end))
+
+
+def device_spans(launched, name: str, args: dict) -> None:
+    """The launches as spans on the ``device`` track, in perf_counter
+    seconds: a start is the anchor's perf_counter plus the card's time
+    from the anchor event to the launch's start event. Called once the
+    launch's result is on the host, so both events have completed and
+    the synchronize below returns at once."""
+    anchor = _anchor
+    if not launched or anchor is None or _trace is None:
+        return
+    _, event0, t_anchor = anchor
+    for kernel, start, end in launched:
+        end.synchronize()
+        t0 = t_anchor + event0.elapsed_time(start) / 1e3
+        trace_span(name, t0, start.elapsed_time(end) / 1e3,
+                   track="device", args={**args, "kernel": kernel})
+
+
+def stop_trace() -> List[dict]:
+    """Disarm and return the collected events, the collections among
+    them, closed by a second ``clock_sync``."""
+    global _trace, _anchor
+    with _trace_lock:
+        events = _trace
+        if events is not None:
+            for thread, t0, dur, generation, collected in list(_gc_spans):
+                events.append({
+                    "ph": "X", "name": "gc", "pid": 1,
+                    "tid": _tid_for(thread),
+                    "ts": t0 * 1e6, "dur": dur * 1e6,
+                    "args": {"generation": generation,
+                             "collected": collected},
+                })
+            events.append(_clock_sync("stop"))
+        _trace, _anchor = None, None
+        _gc_spans.clear()
         _trace_tids.clear()
-    return events
+    return events or []
 
 
 def export_chrome_trace(path: str) -> int:

@@ -13,7 +13,11 @@ mitigation for CPython services.
 from __future__ import annotations
 
 import gc
+import threading
+from typing import Optional
 import time as _time
+
+from kubernetes_tpu_torch.utils import flightrecorder, metrics
 
 
 def freeze_steady_state_graph(
@@ -82,3 +86,48 @@ class GCBatchGuard:
 
     def close(self) -> None:
         self.idle()
+
+
+class _PauseHook:
+    """The ``gc.callbacks`` hook that times every collection, on any
+    thread: ``scheduler_tpu_gc_pause_seconds_total{generation}`` always,
+    and a ``gc`` span on the collecting thread's track while the flight
+    recorder's trace is armed. One hook serves every scheduler of the
+    process: ``install`` and ``remove`` count their callers."""
+
+    def __init__(self) -> None:
+        self._users = 0
+        self._lock = threading.Lock()
+        self._t0: Optional[float] = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        # collections never overlap (the interpreter holds one at a time),
+        # so one start slot serves every thread
+        if phase == "start":
+            self._t0 = _time.perf_counter()
+            return
+        t0, self._t0 = self._t0, None
+        if t0 is None:
+            return  # installed while this collection ran
+        seconds = _time.perf_counter() - t0
+        generation = info.get("generation", -1)
+        metrics.gc_pause_seconds.inc(seconds, generation=str(generation))
+        flightrecorder.gc_pause(
+            threading.current_thread().name, t0, seconds, generation,
+            info.get("collected", 0),
+        )
+
+    def install(self) -> None:
+        with self._lock:
+            self._users += 1
+            if self._users == 1:
+                gc.callbacks.append(self)
+
+    def remove(self) -> None:
+        with self._lock:
+            self._users = max(0, self._users - 1)
+            if self._users == 0 and self in gc.callbacks:
+                gc.callbacks.remove(self)
+
+
+PAUSE_HOOK = _PauseHook()

@@ -66,6 +66,24 @@ class Counter:
         return out
 
 
+class LockFreeCounter(Counter):
+    """A counter written from a ``gc`` callback. A collection can start
+    inside any allocation, also one made while this counter's lock is
+    held, so the writer takes no lock; collections never overlap, so
+    there is one writer at a time."""
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = () if not labels else _label_key(labels)
+        self._values[key] = self._values.get(key, 0.0) + amount
+
+    def collect(self) -> List[str]:
+        values = dict(self._values)
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        for key, v in sorted(values.items()):
+            out.append(f"{self.name}{_fmt_labels(key)} {v}")
+        return out
+
+
 class Gauge:
     def __init__(
         self,
@@ -571,6 +589,13 @@ jit_compiles = registry.register(Counter(
     "mark, because an unplanned multi-second compile inside a measured "
     "window is exactly what the warmup contract exists to prevent.",
     ("signature",),
+))
+gc_pause_seconds = registry.register(LockFreeCounter(
+    "scheduler_tpu_gc_pause_seconds_total",
+    "Seconds the cyclic garbage collector held the interpreter, on any "
+    "thread, by generation (timed by a gc callback while a batch "
+    "scheduler's run loop is up).",
+    ("generation",),
 ))
 # blast-radius containment (ISSUE 14): poison-pod bisection, the
 # quarantine ledger, the carry integrity audit, and device-loss rebuild

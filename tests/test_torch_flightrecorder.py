@@ -3,7 +3,10 @@ held against the JAX package.
 
 ``utils/flightrecorder.py``, ``utils/metrics.py``, ``utils/quantiles.py``,
 ``scheduler/metrics_recorder.py`` and ``scheduler/debugger.py`` are
-identical in both packages, so the cases of ``tests/test_flightrecorder.py``,
+identical in both packages (apart from the port's trace spans, counters
+and clock anchor, and its collector-pause counter, which
+``tests/test_torch_trace_spans.py`` covers), so the cases of
+``tests/test_flightrecorder.py``,
 ``tests/test_metrics_exposition.py`` and ``tests/test_ops_shell.py`` that
 test only those modules (the span ring, the Chrome-trace export, the
 P-squared sketch, label escaping, callback gauges, the registry, leader

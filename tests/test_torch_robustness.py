@@ -6,8 +6,9 @@ Not twinned: ``TestFaultInjector``, ``TestCircuitBreaker``,
 ``TestWatchdog`` and ``TestRetryPolicy``. ``robustness/faults.py``,
 ``robustness/circuit.py`` (the breaker, the watchdog, ``RetryPolicy``)
 and ``client/informer.py`` are byte-identical in both packages apart from
-the package name in their imports, so the reference's own cases already
-run their code.
+the package name in their imports (and, in the port's informer, the
+``ingest`` trace span, covered by ``tests/test_torch_trace_spans.py``),
+so the reference's own cases already run their code.
 
 How the tiers map. The reference's device tiers are ``pallas`` and
 ``xla``; its ``TestSolverLadder`` drives ``xla`` above ``host_greedy``.
